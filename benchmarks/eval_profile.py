@@ -10,7 +10,7 @@ device compute). This splits one device-cache eval into its phases:
 Each phase is timed on the SAME prediction set, so the numbers add up to a
 serial-equivalent wall clock; the production Evaluator pipelines device
 work against host decode (pipeline_depth), so its total ~= max(device,
-host) + tails. Run on the TPU:  python benchmarks/eval_profile.py [n]
+host) + tails. Run on the GPU:  python benchmarks/eval_profile.py [n]
 """
 
 from __future__ import annotations

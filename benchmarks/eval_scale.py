@@ -1,6 +1,6 @@
 """Full-scale eval wall-clock: 5050 scenes (the reference val-split size).
 
-Measures the complete Evaluator pass — batched TPU inference + host-side
+Measures the complete Evaluator pass — batched device inference + host-side
 AP matching (native C++ greedy matcher) — at the reference's val-split
 scale (run.py:99: val = ids 1-5050), on synthetic scenes.
 

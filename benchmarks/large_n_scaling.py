@@ -1,14 +1,14 @@
-"""Single-chip point-count scaling: full forward at N far beyond 20480.
+"""Single-GPU point-count scaling: full forward at N far beyond 20480.
 
-SURVEY §5 names point count as this model's "long-context" axis. The ball
-query / three_nn stream in blocks when their dense (B, M, N) intermediates
-exceed ``ops.common.DENSE_BYTES_BUDGET`` (byte-based, so small batches keep
-the dense path far longer), and FPS escalates batched-Pallas -> row-wise
-Pallas -> XLA loop by VMEM fit, so the same full model runs at N >> 20480.
-This measures those claims on the real chip: forward scenes/s (and
-ms/scene) at N = 20480 .. 163840, B=2, fixed proposal count.
+SURVEY §5 names point count as this model's "long-context" axis. On a GPU
+FPS and the ball query are the Pallas-Triton kernels, which stream any N;
+three_nn (and the ball query's XLA twin, ``--use_pallas=False``) stream in
+blocks when their dense (B, M, N) intermediates exceed
+``ops.common.dense_bytes_budget()`` (byte-based, so small batches keep the
+dense path far longer). This measures forward scenes/s (and ms/scene) at
+N = 20480 .. 163840, B=2, fixed proposal count.
 
-Usage: python benchmarks/large_n_scaling.py
+Usage: python benchmarks/large_n_scaling.py [--use_pallas=False]
 """
 
 from __future__ import annotations
@@ -22,66 +22,54 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax import lax
 
 B = int(os.environ.get("BENCH_BATCH", "2"))
-K = 5
 
 
-def _sync(x):
-    np.asarray(jax.tree_util.tree_leaves(x)[0].ravel()[:1])
-
-
-def main():
-    from votenet_tpu.config import default_config
+def main(argv=None):
+    from votenet_tpu.config import config_from_args
     from votenet_tpu.models.decode import predict_boxes
     from votenet_tpu.models.votenet import VoteNet
+    from votenet_tpu.ops import common as C
+    from votenet_tpu.ops.dispatch import apply_config
+    from votenet_tpu.utils.compile_cache import setup_compile_cache
 
+    setup_compile_cache()
+    base = config_from_args(argv)
+    apply_config(base)
     rng = np.random.RandomState(0)
     for n in (20480, 40960, 81920, 163840):
-        cfg = default_config(point_num=n)
+        cfg = base.replace(point_num=n)
         model = VoteNet(cfg)
         pts0 = jnp.zeros((1, n, 3), jnp.float32)
         variables = jax.jit(lambda r, p: model.init(r, p, train=False))(
             jax.random.PRNGKey(0), pts0
         )
 
+        @jax.jit
         def predict(points):
             end_points = model.apply(variables, points, train=False)
             return predict_boxes(end_points, cfg)["keep"]
 
-        @jax.jit
-        def chained(points):
-            def body(i, carry):
-                p, acc = carry
-                keep = predict(p)
-                acc = acc + jnp.sum(keep)
-                return p + acc.astype(jnp.float32) * 1e-30, acc
-
-            return lax.fori_loop(0, K, body, (points, jnp.int32(0)))
-
         pts = jnp.asarray(rng.uniform(-4, 4, (B, n, 3)).astype(np.float32))
-        _sync(chained(pts))  # compile + warm
-        best = np.inf
-        for _ in range(3):
+        jax.block_until_ready(predict(pts))  # compile + warm
+        times = []
+        for _ in range(5):
             t0 = time.perf_counter()
-            out = chained(pts)
-            _sync(out)
-            best = min(best, time.perf_counter() - t0)
-        dt = best / K
-        from votenet_tpu.ops import common as C
-        cfgM = cfg.sa_npoints[0]
+            jax.block_until_ready(predict(pts))
+            times.append(time.perf_counter() - t0)
+        dt = float(np.median(times))
         mode = (
             "streaming"
-            if C.bq_dense_bytes(B, cfgM, n) > C.DENSE_BYTES_BUDGET
+            if C.bq_dense_bytes(B, cfg.sa_npoints[0], n) > C.dense_bytes_budget()
             else "dense"
         )
         print(
-            f"N={n:6d} ({mode:9s}): {B/dt:7.2f} scenes/s, "
+            f"N={n:6d} (twin bq {mode:9s}): {B/dt:7.2f} scenes/s, "
             f"{dt/B*1e3:7.2f} ms/scene, {dt*1e3:7.2f} ms/batch",
             flush=True,
         )
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

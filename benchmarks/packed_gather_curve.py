@@ -8,7 +8,7 @@ features (DESIGN.md "packed bf16 hi/lo gather transport"); this script
 is the empirical check that the cast does not bend the optimization
 path at the loss-curve level.
 
-Run on the TPU: python benchmarks/packed_gather_curve.py [STEPS]
+Run on the GPU: python benchmarks/packed_gather_curve.py [STEPS]
 """
 
 from __future__ import annotations

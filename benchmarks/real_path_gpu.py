@@ -1,4 +1,4 @@
-"""Full-scale real-data-path rehearsal ON TPU (VERDICT r2 #3).
+"""Full-scale real-data-path rehearsal on a GPU (VERDICT r2 #3).
 
 Generates a 50-scene miniature SUN RGB-D tree at FULL point counts (24000
 raw points/scene, subsampled to the production 20480) in the reference
@@ -9,7 +9,7 @@ checkpoint auto-resume. This proves the pipeline at reference scale without
 the dataset mounted; the one-command recipe for the real dataset is in
 README.md ("Runbook").
 
-  python benchmarks/real_path_tpu.py [--scenes 50] [--epochs 4]
+  python benchmarks/real_path_gpu.py [--scenes 50] [--epochs 4]
 """
 
 from __future__ import annotations
@@ -85,7 +85,7 @@ def main():
         hist = json.load(f)
     maps = {h["epoch_num"]: h.get("mAP0.25") for h in hist if "mAP0.25" in h}
     print(f"epoch mAPs: {maps}")
-    print(f"REAL-PATH TPU REHEARSAL PASSED ({args.scenes} scenes, "
+    print(f"REAL-PATH GPU REHEARSAL PASSED ({args.scenes} scenes, "
           f"{args.points} pts, {args.epochs} epochs, cache+train+eval+resume)")
 
 

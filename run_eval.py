@@ -14,7 +14,7 @@ import jax
 import numpy as np
 
 
-def main():
+def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--log_dir", default="train_log/run")
     parser.add_argument("--data_root", default="/data/mysunrgbd")
@@ -22,15 +22,17 @@ def main():
     parser.add_argument("--synthetic", type=int, default=0)
     parser.add_argument("--ious", type=float, nargs="+", default=[0.25, 0.5])
     parser.add_argument("--batch_size", type=int, default=64,
-                        help="eval batch (results are batch-independent; "
-                             "large batches amortize fetch round trips)")
+                        help="eval batch (results are batch-independent)")
     parser.add_argument("--preset", default="full",
                         choices=["full", "tiny", "throughput"],
-                        help="throughput = bf16 batch serving (f32-trained "
-                             "checkpoints load unchanged; measured +5% at "
-                             "B=8 with ~0.01 held-out-mAP cost — DESIGN.md "
-                             "serving table)")
-    args, config_argv = parser.parse_known_args()
+                        help="throughput = bf16 MLP compute for batch "
+                             "evaluation (f32-trained checkpoints load "
+                             "unchanged; not reference parity)")
+    args, config_argv = parser.parse_known_args(argv)
+
+    from votenet_tpu.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
 
     from votenet_tpu.config import config_from_args, default_config, tiny_config
     from votenet_tpu.ops.dispatch import apply_config
@@ -42,8 +44,6 @@ def main():
     if args.preset == "tiny":
         cfg = tiny_config()
     elif args.preset == "throughput":
-        # serving-side speed: bf16 MLP compute (B>=8 batch eval; keep f32
-        # for B=1 latency serving — it measures SLOWER there, DESIGN.md)
         cfg = default_config(compute_dtype="bfloat16")
     else:
         cfg = default_config()

@@ -45,6 +45,37 @@ def query_ball_oracle(radius, nsample, xyz1, xyz2):
     return idx, cnt
 
 
+def query_ball_oracle_vec(radius, nsample, xyz1, xyz2, block=256):
+    """Vectorised :func:`query_ball_oracle`: the same f32 arithmetic
+    (``((dx*dx)+(dy*dy))+(dz*dz)``, then ``max(sqrt(d2), 1e-20) < radius``
+    in f32) and selection rules, fast enough for the model's live shapes."""
+    xyz1 = np.asarray(xyz1, np.float32)
+    xyz2 = np.asarray(xyz2, np.float32)
+    B, N, _ = xyz1.shape
+    M = xyz2.shape[1]
+    r = np.float32(radius)
+    idx = np.zeros((B, M, nsample), dtype=np.int32)
+    cnt = np.zeros((B, M), dtype=np.int32)
+    for b in range(B):
+        for m0 in range(0, M, block):
+            q = xyz2[b, m0 : m0 + block]
+            dx = q[:, None, 0] - xyz1[b, None, :, 0]
+            dy = q[:, None, 1] - xyz1[b, None, :, 1]
+            dz = q[:, None, 2] - xyz1[b, None, :, 2]
+            d2 = (dx * dx + dy * dy) + dz * dz
+            hit = np.maximum(np.sqrt(d2), np.float32(1e-20)) < r
+            rank = np.cumsum(hit, axis=1)
+            rows, cols = np.nonzero(hit & (rank <= nsample))
+            c = np.minimum(hit.sum(axis=1), nsample).astype(np.int32)
+            blk = np.zeros((len(q), nsample), np.int32)
+            blk[rows, rank[rows, cols] - 1] = cols
+            slot = np.arange(nsample)[None, :]
+            blk = np.where(slot < c[:, None], blk, blk[:, :1])
+            idx[b, m0 : m0 + block] = blk
+            cnt[b, m0 : m0 + block] = c
+    return idx, cnt
+
+
 def group_point_oracle(points, idx):
     """Feature gather (tf_grouping_g.cu:40-57)."""
     B, M, S = idx.shape

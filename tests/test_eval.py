@@ -127,7 +127,7 @@ class TestEvaluatorEndToEnd:
         assert result["mAP"] == pytest.approx(1.0)
 
     def test_device_cache_matches_host_path(self, rng):
-        """DeviceSceneCache (HBM-resident val set) must produce identical
+        """DeviceSceneCache (device-resident val set) must produce identical
         predictions to the per-batch host-upload path, including the
         padded-last-batch masking."""
         from votenet_tpu.config import Config

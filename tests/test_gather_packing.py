@@ -2,7 +2,7 @@
 
 The opt-in packs the train-path fused [xyz ‖ feat] gather table as bf16 —
 coordinates as Dekker-style hi+lo bf16 pairs, features bf16-rounded — to
-halve the sa2+ grouped-tensor HBM bytes (ops/dispatch.py gather_packing).
+halve the sa2+ grouped-tensor bytes (ops/dispatch.py gather_packing).
 Compute stays f32; these tests pin the contract:
 
 - hi+lo reconstruction is sub-0.1 mm exact at room scale,
@@ -166,7 +166,7 @@ def test_gradients_agree_normwise(rng):
     # (measured: norm ratio 0.887, cos 0.83 at init). These bounds guard
     # against lost/exploding gradient paths; exact plumbing is proven by
     # test_gradients_exact_for_bf16_representable_inputs below, and the
-    # convergence arbiter is the TPU curve A/B (benchmarks/bf16_curve.py
+    # convergence arbiter is a training-curve A/B (benchmarks/bf16_curve.py
     # packed mode, DESIGN.md).
     assert 0.75 < n1 / n0 < 1.3, (n0, n1)
     cos = float(v0 @ v1 / (n0 * n1))
@@ -212,19 +212,6 @@ def test_layer_gradients_exact_for_bf16_representable_inputs(rng):
     assert np.linalg.norm(v1 - v0) / n0 < 1e-2
     cos = float(v0 @ v1 / (n0 * np.linalg.norm(v1)))
     assert cos > 0.9999, cos
-
-
-def test_scatter_single_pass_for_bf16_cotangent(rng):
-    """scatter_add on a bf16 payload must equal the f32 scatter of the
-    upcast payload: one bf16 MXU pass carries the full bf16 mantissa."""
-    from votenet_tpu.ops.grouping import scatter_add_mxu
-
-    g16 = jnp.asarray(rng.randn(2, 8, 4, 16), jnp.bfloat16)
-    idx = jnp.asarray(rng.randint(0, 32, size=(2, 8, 4)), jnp.int32)
-    out16 = scatter_add_mxu(g16, idx, 32)
-    out32 = scatter_add_mxu(g16.astype(jnp.float32), idx, 32)
-    assert out16.dtype == jnp.float32
-    np.testing.assert_array_equal(np.asarray(out16), np.asarray(out32))
 
 
 def test_apply_config_plumbs_gather_packing():

@@ -79,10 +79,10 @@ class TestQueryBallBoundary:
     """Pins the precision contract in ops/grouping.py: in the default
     "exact" mode the production query's mm-expansion distances (HIGHEST-
     precision cross-term) may flip membership only within a few-ulp band of
-    the radius boundary — and on TPU hardware measure bit-identical to the
-    oracle at every live shape (benchmarks/tpu_kernel_checks.py). The
-    opt-in "fast_bf16" mode has a much wider (cm-scale) band on TPU and is
-    not exercised here."""
+    the radius boundary; chip_smoke.py checks the GPU kernel and the XLA
+    twin bit-equal to the oracle at every live shape. The opt-in
+    "fast_bf16" mode has a much wider (cm-scale) band and is not exercised
+    here."""
 
     RADIUS = 0.5
 

@@ -1,4 +1,5 @@
-"""Pallas kernel tests (interpret mode on CPU) + IoU implementation
+"""GPU kernel tests (Pallas-Triton kernels in interpret mode on the CPU,
+compiled on a GPU under the ``chip`` marker) + IoU implementation
 cross-validation."""
 
 import numpy as np
@@ -6,37 +7,58 @@ import pytest
 
 from tests import oracles
 
+FPS_CASES = [
+    (2, 128, 32),
+    (3, 300, 64),     # N not a power of two: padded chunk
+    (8, 512, 128),
+    (1, 64, 1),       # npoint=1: only the seed
+    (1, 2000, 300),
+    (5, 1111, 97),    # odd N and npoint
+    (1, 5000, 40),    # two chunks, the second partly padding
+    (2, 70000, 8),    # more chunks than unroll: the device chunk loop
+]
+
 
 class TestPallasFPS:
-    @pytest.mark.parametrize("B,N,m", [(2, 128, 32), (3, 300, 64), (8, 512, 128), (1, 64, 1)])
+    @pytest.mark.parametrize("B,N,m", FPS_CASES)
     def test_matches_oracle(self, rng, B, N, m):
-        from votenet_tpu.ops.pallas.fps import farthest_point_sample_pallas
+        from votenet_tpu.ops.pallas.fps import farthest_point_sample_gpu
 
         xyz = rng.randn(B, N, 3).astype(np.float32)
-        got = np.asarray(farthest_point_sample_pallas(m, xyz, interpret=True))
-        want = oracles.fps_oracle(m, xyz)
-        np.testing.assert_array_equal(got, want)
-
-    @pytest.mark.parametrize(
-        "B,N,m", [(2, 128, 32), (3, 300, 64), (8, 512, 128), (1, 64, 1), (1, 2000, 300), (5, 1111, 97)]
-    )
-    def test_rowwise_matches_oracle(self, rng, B, N, m):
-        """Row-wise fold (points over sublanes x lanes, grid over batch)."""
-        from votenet_tpu.ops.pallas.fps import farthest_point_sample_pallas_rowwise
-
-        xyz = rng.randn(B, N, 3).astype(np.float32)
-        got = np.asarray(farthest_point_sample_pallas_rowwise(m, xyz, interpret=True))
-        want = oracles.fps_oracle(m, xyz)
-        np.testing.assert_array_equal(got, want)
+        got = np.asarray(farthest_point_sample_gpu(m, xyz, True))
+        np.testing.assert_array_equal(got, oracles.fps_oracle(m, xyz))
 
     def test_matches_xla_twin(self, rng):
-        from votenet_tpu.ops.pallas.fps import farthest_point_sample_pallas
+        from votenet_tpu.ops.pallas.fps import farthest_point_sample_gpu
         from votenet_tpu.ops.sampling import farthest_point_sample_xla
 
         xyz = rng.randn(4, 400, 3).astype(np.float32)
-        a = np.asarray(farthest_point_sample_pallas(96, xyz, interpret=True))
+        a = np.asarray(farthest_point_sample_gpu(96, xyz, True))
         b = np.asarray(farthest_point_sample_xla(96, xyz))
         np.testing.assert_array_equal(a, b)
+
+    def test_ties_pick_lowest_index(self):
+        """Duplicate points give equal distances: the lowest index wins,
+        as in the reference's strictly-greater scan."""
+        from votenet_tpu.ops.pallas.fps import farthest_point_sample_gpu
+
+        base = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [1, 0, 0], [0, 1, 0]], np.float32)
+        got = np.asarray(farthest_point_sample_gpu(3, base[None], True))
+        np.testing.assert_array_equal(got, oracles.fps_oracle(3, base[None]))
+        np.testing.assert_array_equal(got, [[0, 1, 2]])
+
+    @pytest.mark.parametrize("n,chunk", [(1, 16), (64, 64), (300, 512), (20480, 4096)])
+    def test_chunk_width(self, n, chunk):
+        from votenet_tpu.ops.pallas.fps import fps_chunk
+
+        assert fps_chunk(n) == chunk
+
+    def test_compiled_matches_oracle(self, chip, rng):
+        from votenet_tpu.ops.pallas.fps import farthest_point_sample_gpu
+
+        xyz = rng.randn(2, 20480, 3).astype(np.float32)
+        got = np.asarray(farthest_point_sample_gpu(256, xyz))
+        np.testing.assert_array_equal(got, oracles.fps_oracle(256, xyz))
 
 
 class TestIoUImplementations:
@@ -105,9 +127,8 @@ class TestIoUImplementations:
 
 
 class TestPallasBallQuery:
-    """ops/pallas/ballquery.py vs the XLA oracle (interpret mode on CPU;
-    the compiled-on-TPU bit-equality at live shapes runs in
-    benchmarks/tpu_kernel_checks.py)."""
+    """ops/pallas/ballquery.py vs the numpy oracle (interpret mode on CPU;
+    chip_smoke.py checks the compiled kernel at the live shapes)."""
 
     def _clouds(self, rng, B, N, M):
         # clustered clouds: the adversarial case for selection semantics
@@ -124,27 +145,21 @@ class TestPallasBallQuery:
             (2, 512, 128, 8, 0.3),
             (1, 300, 70, 16, 0.5),   # unaligned N/M (padding paths)
             (2, 1024, 256, 64, 0.2),
+            (1, 129, 1, 4, 0.4),     # one query; N one past a chunk
+            (1, 2000, 40, 64, 1.5),  # every ball saturates: early exit
         ],
     )
     def test_matches_oracle(self, rng, B, N, M, S, r):
-        import jax.numpy as jnp
-
-        from votenet_tpu.ops.grouping import query_ball_point_topk
-        from votenet_tpu.ops.pallas.ballquery import query_ball_point_pallas
+        from votenet_tpu.ops.pallas.ballquery import query_ball_point_gpu
 
         pts, q = self._clouds(rng, B, N, M)
-        ia, ca = query_ball_point_pallas(
-            r, S, jnp.asarray(pts), jnp.asarray(q), True
-        )
-        ib, cb = query_ball_point_topk(r, S, jnp.asarray(pts), jnp.asarray(q))
-        np.testing.assert_array_equal(np.asarray(ia), np.asarray(ib))
-        np.testing.assert_array_equal(np.asarray(ca), np.asarray(cb))
+        ia, ca = query_ball_point_gpu(r, S, pts, q, True)
+        ib, cb = oracles.query_ball_oracle(r, S, pts, q)
+        np.testing.assert_array_equal(np.asarray(ia), ib)
+        np.testing.assert_array_equal(np.asarray(ca), cb)
 
     def test_empty_and_saturated_balls(self, rng):
-        import jax.numpy as jnp
-
-        from votenet_tpu.ops.grouping import query_ball_point_topk
-        from votenet_tpu.ops.pallas.ballquery import query_ball_point_pallas
+        from votenet_tpu.ops.pallas.ballquery import query_ball_point_gpu
 
         # one dense blob + far-away queries: rows saturate AND rows are empty
         pts = rng.randn(1, 256, 3).astype(np.float32) * 0.05
@@ -152,98 +167,40 @@ class TestPallasBallQuery:
             [np.zeros((1, 4, 3), np.float32), np.full((1, 4, 3), 50.0, np.float32)],
             axis=1,
         )
-        ia, ca = query_ball_point_pallas(
-            0.5, 8, jnp.asarray(pts), jnp.asarray(q), True
-        )
-        ib, cb = query_ball_point_topk(0.5, 8, jnp.asarray(pts), jnp.asarray(q))
-        np.testing.assert_array_equal(np.asarray(ia), np.asarray(ib))
-        np.testing.assert_array_equal(np.asarray(ca), np.asarray(cb))
+        ia, ca = query_ball_point_gpu(0.5, 8, pts, q, True)
+        ib, cb = oracles.query_ball_oracle(0.5, 8, pts, q)
+        np.testing.assert_array_equal(np.asarray(ia), ib)
+        np.testing.assert_array_equal(np.asarray(ca), cb)
         assert np.asarray(ca)[0, :4].max() == 8  # saturated
         assert np.asarray(ca)[0, 4:].max() == 0  # empty -> index 0 rows
         assert np.asarray(ia)[0, 4:].max() == 0
 
+    def test_vectorised_oracle_matches_loop_oracle(self, rng):
+        pts, q = self._clouds(rng, 2, 300, 70)
+        q[:, :3] = 50.0  # empty balls too
+        a = oracles.query_ball_oracle(0.4, 16, pts, q)
+        b = oracles.query_ball_oracle_vec(0.4, 16, pts, q, block=32)
+        np.testing.assert_array_equal(a[0], b[0])
+        np.testing.assert_array_equal(a[1], b[1])
 
-class TestFusedSAMLPPool:
-    """ops/pallas/samlp.py: the fused eval-path grouped-MLP + max-pool."""
+    @pytest.mark.parametrize("r", [0.2, 0.3, 0.4, 0.8, 1.2])
+    def test_radius_threshold_is_the_sqrt_test(self, r):
+        """d2 < radius_sq_threshold(r) exactly when max(sqrt(d2), 1e-20) < r
+        in f32, for every d2 within 64 ulps of r*r."""
+        from votenet_tpu.ops.common import radius_sq_threshold
 
-    def _ref(self, h0, sh0, s0, layers):
-        import jax
-        import jax.numpy as jnp
+        t = np.float32(radius_sq_threshold(r))
+        r32 = np.float32(r)
+        base = np.array([r32 * r32], np.float32).view(np.int32)[0]
+        d2 = (base + np.arange(-64, 65, dtype=np.int32)).view(np.float32)
+        want = np.maximum(np.sqrt(d2), np.float32(1e-20)) < r32
+        np.testing.assert_array_equal(d2 < t, want)
 
-        x = jax.nn.relu(h0 * s0 + sh0[:, :, None, :])
-        for (W, s, t) in layers:
-            x = jax.nn.relu((x @ W) * s + t)
-        return jnp.max(x, axis=2)
+    def test_compiled_matches_oracle(self, chip, rng):
+        from votenet_tpu.ops.pallas.ballquery import query_ball_point_gpu
 
-    @pytest.mark.parametrize(
-        "B,M,S,widths",
-        [
-            (2, 192, 64, [64, 64, 128]),   # sa1 widths, unaligned M
-            (1, 256, 64, [128, 128, 256]),  # sa2+ widths
-            (2, 64, 16, [16, 16, 32]),      # tiny-config widths
-        ],
-    )
-    def test_matches_xla_chain(self, rng, B, M, S, widths):
-        import jax.numpy as jnp
-
-        from votenet_tpu.ops.pallas.samlp import fused_sa_mlp_pool
-
-        h0 = jnp.asarray(rng.randn(B, M, S, widths[0]), jnp.float32)
-        sh0 = jnp.asarray(rng.randn(B, M, widths[0]), jnp.float32)
-        s0 = jnp.asarray(rng.rand(widths[0]) + 0.5, jnp.float32)
-        layers = [
-            (
-                jnp.asarray(rng.randn(widths[i], widths[i + 1]) * 0.1, jnp.float32),
-                jnp.asarray(rng.rand(widths[i + 1]) + 0.5, jnp.float32),
-                jnp.asarray(rng.randn(widths[i + 1]) * 0.1, jnp.float32),
-            )
-            for i in range(len(widths) - 1)
-        ]
-        got = np.asarray(fused_sa_mlp_pool(h0, sh0, s0, layers, interpret=True))
-        want = np.asarray(self._ref(h0, sh0, s0, layers))
-        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
-
-    def test_model_eval_fused_equals_xla(self, rng):
-        """Full VoteNet eval forward: fused kernel vs XLA chain, and the
-        kernel must actually be entered (routing assertion)."""
-        import jax
-        import jax.numpy as jnp
-
-        from votenet_tpu.config import tiny_config
-        from votenet_tpu.models.votenet import VoteNet
-        from votenet_tpu.ops import dispatch
-        from votenet_tpu.ops.pallas import samlp as samlp_mod
-
-        cfg = tiny_config()
-        model = VoteNet(cfg)
-        pts = jnp.asarray(rng.uniform(-3, 3, (2, cfg.point_num, 3)), jnp.float32)
-        vars_ = model.init(jax.random.PRNGKey(0), pts, train=True)
-
-        prev = dispatch.samlp_enabled()
-        calls = []
-        orig = samlp_mod.fused_sa_mlp_pool
-        try:
-            dispatch.set_samlp("off")
-            out_xla = model.apply(vars_, pts, train=False, mutable=False)
-            dispatch.set_samlp("on")
-
-            def counting(*a, **k):
-                calls.append(1)
-                return orig(*a, **k)
-
-            samlp_mod.fused_sa_mlp_pool = counting
-            with dispatch.samlp_interpreted():
-                out_fused = model.apply(vars_, pts, train=False, mutable=False)
-        finally:
-            samlp_mod.fused_sa_mlp_pool = orig
-            dispatch.set_samlp("on" if prev else "off")
-
-        assert len(calls) >= 4, f"fused kernel not routed (calls={len(calls)})"
-        for a, b in zip(
-            jax.tree_util.tree_leaves(out_xla), jax.tree_util.tree_leaves(out_fused)
-        ):
-            a, b = np.asarray(a), np.asarray(b)
-            if a.dtype.kind in "fc":
-                np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-5)
-            else:
-                np.testing.assert_array_equal(a, b)
+        pts, q = self._clouds(rng, 2, 20480, 256)
+        ia, ca = query_ball_point_gpu(0.2, 64, pts, q)
+        ib, cb = oracles.query_ball_oracle_vec(0.2, 64, pts, q)
+        np.testing.assert_array_equal(np.asarray(ia), ib)
+        np.testing.assert_array_equal(np.asarray(ca), cb)

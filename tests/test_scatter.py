@@ -1,9 +1,8 @@
-"""MXU one-hot scatter-add (the TPU group_point VJP) correctness tests.
+"""group_point and its gradient: XLA's gather and scatter-add.
 
-The reference computes this gradient with atomicAdd (tf_grouping_g.cu:61-78,
-non-deterministic float accumulation); scatter_add_mxu is the deterministic
-TPU formulation: chunked one-hot f32 matmuls (see benchmarks/scatter_bench.py
-for the measured ~2x win over XLA's native scatter lowering at model shapes).
+The reference computes the gradient with atomicAdd (tf_grouping_g.cu:61-78);
+here the VJP of the plain gather is XLA's scatter-add, checked against
+``np.add.at`` at the shapes the kernels' tests used.
 """
 
 import jax
@@ -11,188 +10,71 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from votenet_tpu.ops.grouping import (
-    _group_point_gather,
-    _group_point_tpu,
-    scatter_add_mxu,
-)
+from tests import oracles
+from votenet_tpu.ops.grouping import group_point
+
+SHAPES = [
+    (2, 20, 5, 7, 40),
+    (1, 30, 13, 130, 64),   # 130 channels: one past a power of two
+    (3, 8, 64, 3, 200),     # coordinate-only rows
+    (2, 16, 8, 128, 48),
+    (1, 64, 64, 259, 256),  # the fused [xyz || feat] width at sa2+
+    (2, 10, 4, 6, 30),
+]
 
 
-class TestScatterAddMXU:
-    @pytest.mark.parametrize(
-        "B,M,S,C,N", [(2, 20, 5, 7, 40), (1, 30, 13, 130, 64), (3, 8, 64, 3, 200)]
-    )
-    def test_matches_numpy(self, rng, B, M, S, C, N):
-        g = rng.randn(B, M, S, C).astype(np.float32)
+def _add_at(g, idx, N):
+    B, C = g.shape[0], g.shape[-1]
+    want = np.zeros((B, N, C), np.float32)
+    for b in range(B):
+        np.add.at(want[b], idx[b].reshape(-1), g[b].reshape(-1, C))
+    return want
+
+
+class TestGroupPointGrad:
+    @pytest.mark.parametrize("B,M,S,C,N", SHAPES)
+    def test_grad_matches_numpy_add_at(self, rng, B, M, S, C, N):
+        pts = jnp.asarray(rng.randn(B, N, C).astype(np.float32))
         idx = rng.randint(0, N, (B, M, S)).astype(np.int32)
-        got = np.asarray(scatter_add_mxu(jnp.asarray(g), jnp.asarray(idx), N))
-        want = np.zeros((B, N, C), np.float32)
-        for b in range(B):
-            np.add.at(want[b], idx[b].reshape(-1), g[b].reshape(-1, C))
-        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5)
+        g = rng.randn(B, M, S, C).astype(np.float32)
+        got = jax.grad(lambda p: jnp.vdot(group_point(p, jnp.asarray(idx)), g))(pts)
+        np.testing.assert_allclose(np.asarray(got), _add_at(g, idx, N), rtol=1e-5, atol=1e-5)
 
     def test_duplicate_indices_accumulate(self):
-        g = jnp.ones((1, 5, 2, 4), jnp.float32)
+        pts = jnp.zeros((1, 8, 4), jnp.float32)
         idx = jnp.zeros((1, 5, 2), jnp.int32)
-        got = np.asarray(scatter_add_mxu(g, idx, 8))
+        got = np.asarray(jax.grad(lambda p: group_point(p, idx).sum())(pts))
         np.testing.assert_allclose(got[0, 0], 10.0)
         np.testing.assert_allclose(got[0, 1:], 0.0)
 
-    def test_chunk_remainder_padding(self, rng):
-        # K=M*S not divisible by chunk: padded updates must be no-ops
-        g = rng.randn(2, 7, 9, 5).astype(np.float32)
-        idx = rng.randint(0, 33, (2, 7, 9)).astype(np.int32)
-        got = np.asarray(scatter_add_mxu(jnp.asarray(g), jnp.asarray(idx), 33, chunk=16))
-        want = np.zeros((2, 33, 5), np.float32)
-        for b in range(2):
-            np.add.at(want[b], idx[b].reshape(-1), g[b].reshape(-1, 5))
-        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5)
-
-
-class TestScatterAddPallas:
-    """Interpret-mode checks for the VMEM-resident Pallas scatter kernel.
-
-    On-device timing and compiled-kernel parity live in
-    benchmarks/scatter_bench.py / benchmarks/tpu_kernel_checks.py; here we
-    pin the semantics (exact 3-pass accumulation, chunk padding, duplicate
-    handling) against the numpy oracle on CPU.
-    """
-
-    @pytest.mark.parametrize(
-        "B,M,S,C,N", [(2, 20, 5, 7, 40), (1, 16, 8, 131, 64), (3, 8, 64, 3, 200)]
-    )
-    def test_exact_matches_numpy(self, rng, B, M, S, C, N):
-        from votenet_tpu.ops.pallas.scatter import scatter_add_pallas
-
-        g = rng.randn(B, M, S, C).astype(np.float32)
-        idx = rng.randint(0, N, (B, M, S)).astype(np.int32)
-        got = np.asarray(
-            scatter_add_pallas(jnp.asarray(g), jnp.asarray(idx), N, interpret=True)
-        )
-        want = np.zeros((B, N, C), np.float32)
-        for b in range(B):
-            np.add.at(want[b], idx[b].reshape(-1), g[b].reshape(-1, C))
-        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5)
-
-    def test_chunk_padding_noops(self, rng):
-        from votenet_tpu.ops.pallas.scatter import scatter_add_pallas
-
-        # K=63 not a multiple of chunk: padded zero-updates must scatter nothing
-        g = rng.randn(2, 7, 9, 5).astype(np.float32)
-        idx = rng.randint(0, 33, (2, 7, 9)).astype(np.int32)
-        got = np.asarray(
-            scatter_add_pallas(
-                jnp.asarray(g), jnp.asarray(idx), 33, chunk=128, interpret=True
-            )
-        )
-        want = np.zeros((2, 33, 5), np.float32)
-        for b in range(2):
-            np.add.at(want[b], idx[b].reshape(-1), g[b].reshape(-1, 5))
-        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5)
-
-    def test_fast_bf16_single_pass(self, rng):
-        from votenet_tpu.ops.pallas.scatter import scatter_add_pallas
-
-        g = rng.randn(1, 8, 16, 32).astype(np.float32)
-        idx = rng.randint(0, 50, (1, 8, 16)).astype(np.int32)
-        got = np.asarray(
-            scatter_add_pallas(jnp.asarray(g), jnp.asarray(idx), 50, passes=1, interpret=True)
-        )
-        # single-pass rounds updates to bf16 before accumulation
-        gb = g.astype(jnp.bfloat16).astype(np.float32)
-        want = np.zeros((1, 50, 32), np.float32)
-        np.add.at(want[0], idx[0].reshape(-1), gb[0].reshape(-1, 32))
-        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-
-
-class TestScatterDispatch:
-    """scatter_add routes Pallas-when-it-fits, einsum otherwise."""
-
-    def test_chunk_chooser_vmem_model(self):
-        from votenet_tpu.ops.grouping import _pallas_scatter_chunk
-
-        # narrowed live shapes all fit (sweep-validated on v5e)
-        assert _pallas_scatter_chunk(8, 1024 * 64, 2048, 128, 3) is not None
-        assert _pallas_scatter_chunk(8, 512 * 64, 1024, 256, 3) is not None
-        assert _pallas_scatter_chunk(8, 256 * 64, 1024, 259, 3) is not None
-        # sa1 (N=20480): the one-hot alone exceeds scoped VMEM -> reject
-        assert _pallas_scatter_chunk(8, 2048 * 64, 20480, 3, 3) is None
-        # the prop/chunk=2048 combination OOM'd on hardware; the model must
-        # not hand back 2048 there
-        assert _pallas_scatter_chunk(8, 256 * 64, 1024, 259, 3) < 2048
-
-    def test_cpu_falls_back_to_mxu(self, rng):
-        from votenet_tpu.ops.grouping import scatter_add
-
-        # on CPU use_pallas() is False; dispatcher must produce the einsum
-        # result (exact agreement with the numpy oracle)
-        g = rng.randn(2, 10, 4, 6).astype(np.float32)
-        idx = rng.randint(0, 30, (2, 10, 4)).astype(np.int32)
-        got = np.asarray(scatter_add(jnp.asarray(g), jnp.asarray(idx), 30))
-        want = np.zeros((2, 30, 6), np.float32)
-        for b in range(2):
-            np.add.at(want[b], idx[b].reshape(-1), g[b].reshape(-1, 6))
-        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5)
-
-
-class TestGroupPointCustomVJP:
-    def test_forward_matches_gather(self, rng):
-        pts = jnp.asarray(rng.randn(2, 50, 6).astype(np.float32))
-        idx = jnp.asarray(rng.randint(0, 50, (2, 10, 4)).astype(np.int32))
+    def test_forward_matches_oracle(self, rng):
+        pts = rng.randn(2, 50, 6).astype(np.float32)
+        idx = rng.randint(0, 50, (2, 10, 4)).astype(np.int32)
         np.testing.assert_array_equal(
-            np.asarray(_group_point_tpu(50, 0, pts, idx)),
-            np.asarray(_group_point_gather(pts, idx)),
-        )
-
-    def test_grad_matches_autodiff_scatter(self, rng):
-        pts = jnp.asarray(rng.randn(2, 50, 6).astype(np.float32))
-        idx = jnp.asarray(rng.randint(0, 50, (2, 10, 4)).astype(np.int32))
-        cot = jnp.asarray(rng.randn(2, 10, 4, 6).astype(np.float32))
-
-        g_custom = jax.grad(lambda p: jnp.vdot(_group_point_tpu(50, 0, p, idx), cot))(pts)
-        g_auto = jax.grad(lambda p: jnp.vdot(_group_point_gather(p, idx), cot))(pts)
-        np.testing.assert_allclose(
-            np.asarray(g_custom), np.asarray(g_auto), rtol=1e-6, atol=1e-5
+            np.asarray(group_point(jnp.asarray(pts), jnp.asarray(idx))),
+            oracles.group_point_oracle(pts, idx),
         )
 
     def test_grad_keeps_primal_dtype(self, rng):
         pts = jnp.asarray(rng.randn(1, 20, 4).astype(np.float32)).astype(jnp.bfloat16)
         idx = jnp.asarray(rng.randint(0, 20, (1, 5, 3)).astype(np.int32))
-        g = jax.grad(lambda p: _group_point_tpu(20, 0, p, idx).astype(jnp.float32).sum())(pts)
+        g = jax.grad(lambda p: group_point(p, idx).astype(jnp.float32).sum())(pts)
         assert g.dtype == jnp.bfloat16
 
+    def test_stop_gradient_columns_get_zero(self, rng):
+        """The SA layers gather [stop_gradient(xyz) || feat]: the coordinate
+        columns get no gradient, the features the exact scatter."""
+        xyz = jnp.asarray(rng.randn(2, 50, 3).astype(np.float32))
+        feat = jnp.asarray(rng.randn(2, 50, 6).astype(np.float32))
+        idx = rng.randint(0, 50, (2, 10, 4)).astype(np.int32)
+        g = rng.randn(2, 10, 4, 9).astype(np.float32)
 
-class TestGradSkipPrefix:
-    """grad_skip_prefix narrows the backward scatter to the feature block.
+        def f(x, p):
+            both = jnp.concatenate([jax.lax.stop_gradient(x), p], axis=-1)
+            return jnp.vdot(group_point(both, jnp.asarray(idx)), g)
 
-    The SA layers pass 3 (their xyz columns are stop_gradient'd input-cloud
-    coordinates); the VJP must return zeros there and the exact scatter for
-    the rest (MXU-lane-aligned widths: 131->128, 259->256).
-    """
-
-    def test_skipped_channels_zero_rest_exact(self, rng):
-        pts = jnp.asarray(rng.randn(2, 50, 9).astype(np.float32))
-        idx = jnp.asarray(rng.randint(0, 50, (2, 10, 4)).astype(np.int32))
-        cot = jnp.asarray(rng.randn(2, 10, 4, 9).astype(np.float32))
-
-        g_skip = jax.grad(
-            lambda p: jnp.vdot(_group_point_tpu(50, 3, p, idx), cot)
-        )(pts)
-        g_full = jax.grad(
-            lambda p: jnp.vdot(_group_point_tpu(50, 0, p, idx), cot)
-        )(pts)
-        np.testing.assert_array_equal(np.asarray(g_skip[..., :3]), 0.0)
+        gx, gp = jax.grad(f, argnums=(0, 1))(xyz, feat)
+        np.testing.assert_array_equal(np.asarray(gx), 0.0)
         np.testing.assert_allclose(
-            np.asarray(g_skip[..., 3:]),
-            np.asarray(g_full[..., 3:]),
-            rtol=1e-6,
-            atol=1e-5,
-        )
-
-    def test_forward_unchanged(self, rng):
-        pts = jnp.asarray(rng.randn(1, 30, 7).astype(np.float32))
-        idx = jnp.asarray(rng.randint(0, 30, (1, 8, 5)).astype(np.int32))
-        np.testing.assert_array_equal(
-            np.asarray(_group_point_tpu(30, 3, pts, idx)),
-            np.asarray(_group_point_tpu(30, 0, pts, idx)),
+            np.asarray(gp), _add_at(g[..., 3:], idx, 50), rtol=1e-5, atol=1e-5
         )

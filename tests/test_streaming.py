@@ -105,8 +105,15 @@ class TestLargeNDispatch:
         xyz2 = xyz1[:, :16]
         di, dc = G.query_ball_point_dense(0.5, 8, jnp.asarray(xyz1), jnp.asarray(xyz2))
         # shrink the byte budget below this shape's dense footprint
-        monkeypatch.setattr(G, "DENSE_BYTES_BUDGET", 1 * 16 * 512 * 6)
+        monkeypatch.setattr(G.common, "dense_bytes_budget", lambda: 1 * 16 * 512 * 6)
+        streamed = []
+        orig = G.query_ball_point_streaming
+        monkeypatch.setattr(
+            G, "query_ball_point_streaming",
+            lambda *a: streamed.append(1) or orig(*a),
+        )
         si, sc = G.query_ball_point(0.5, 8, jnp.asarray(xyz1), jnp.asarray(xyz2))
+        assert streamed
         np.testing.assert_array_equal(np.asarray(si), np.asarray(di))
         np.testing.assert_array_equal(np.asarray(sc), np.asarray(dc))
 
@@ -117,7 +124,7 @@ class TestLargeNDispatch:
         xyz2 = rng.uniform(-3, 3, (1, 32, 3)).astype(np.float32)
         dd, di = I.three_nn_dense(jnp.asarray(xyz1), jnp.asarray(xyz2))
         # shrink the byte budget below this shape's dense footprint
-        monkeypatch.setattr(I, "DENSE_BYTES_BUDGET", 1 * 512 * 32 * 4)
+        monkeypatch.setattr(I.common, "dense_bytes_budget", lambda: 1 * 512 * 32 * 4)
         sd, si = I.three_nn(jnp.asarray(xyz1), jnp.asarray(xyz2))
         np.testing.assert_array_equal(np.asarray(si), np.asarray(di))
         np.testing.assert_array_equal(np.asarray(sd), np.asarray(dd))

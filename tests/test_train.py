@@ -222,6 +222,68 @@ class TestDataParallel:
         ge.dryrun_multichip(8)
 
 
+class TestGradProbe:
+    """The gradient probe and check that the multi-device comparisons use."""
+
+    def test_probe_keeps_update_and_returns_grad(self):
+        from __graft_entry__ import grad_probe
+        from votenet_tpu.models.losses import votenet_loss
+        from votenet_tpu.models.votenet import VoteNet
+        from votenet_tpu.train.loop import GT_KEYS, make_train_step
+        from votenet_tpu.train.state import create_train_state
+
+        cfg = smoke_config()
+        model = VoteNet(cfg)
+        state = create_train_state(jax.random.PRNGKey(0), cfg, steps_per_epoch=4)
+        batch = {k: jnp.asarray(v) for k, v in synthetic_batches(cfg, 1)[0].items()}
+        step = jax.jit(make_train_step(model, cfg))
+        plain, _ = step(state, batch)
+        probed, _ = step(grad_probe(state), batch)
+
+        def loss(params):
+            end_points, _ = model.apply(
+                {"params": params, "batch_stats": state.batch_stats},
+                batch["points"], train=True, mutable=["batch_stats"],
+            )
+            return votenet_loss(end_points, {k: batch[k] for k in GT_KEYS}, cfg).total
+
+        want = jax.jit(jax.grad(loss))(state.params)
+        for a, b in zip(jax.tree_util.tree_leaves(plain.params),
+                        jax.tree_util.tree_leaves(probed.params)):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        for a, b in zip(jax.tree_util.tree_leaves(want),
+                        jax.tree_util.tree_leaves(probed.opt_state[1])):
+            np.testing.assert_allclose(np.asarray(b), np.asarray(a), rtol=1e-5, atol=1e-7)
+
+    @pytest.mark.parametrize("scale,ok", [
+        (1.0, True), (1.0 + 1e-3, True), (2.0, False), (4.0, False), (0.25, False),
+    ])
+    def test_compare_grads_sees_scale(self, rng, scale, ok):
+        from __graft_entry__ import compare_grads
+
+        ref = {"w": rng.randn(16, 8).astype(np.float32),
+               "b": rng.randn(8).astype(np.float32) * 1e-9}
+        got = jax.tree_util.tree_map(lambda a: a * scale, ref)
+        if ok:
+            assert "gradients:" in compare_grads(ref, got)
+        else:
+            with pytest.raises(AssertionError):
+                compare_grads(ref, got)
+
+    def test_compare_grads_floors_zero_leaves(self, rng):
+        """A leaf whose gradient is rounding noise is judged against the
+        floor of 1e-3 of the global norm, not its own norm."""
+        from __graft_entry__ import compare_grads
+
+        ref = {"w": rng.randn(16, 8).astype(np.float32),
+               "b": rng.randn(8).astype(np.float32) * 1e-9}
+        got = {"w": ref["w"], "b": -ref["b"]}
+        compare_grads(ref, got)
+        got["b"] = ref["b"] + 1e-3 * np.linalg.norm(ref["w"])
+        with pytest.raises(AssertionError):
+            compare_grads(ref, got)
+
+
 class TestHostSlicing:
     def test_host_local_slice_partition(self):
         from votenet_tpu.parallel.mesh import host_local_slice
@@ -269,9 +331,9 @@ class TestMeshShapeValidation:
 @pytest.mark.slow
 class TestCoordGradNarrowing:
     """The backbone SA layers declare xyz non-differentiable (coord_grad=
-    False) so the fused gather's backward scatters only the MXU-aligned
-    feature block. Load-bearing assertion: backbone coordinates derive only
-    from the param-free input cloud, so no parameter gradient may change."""
+    False) so the fused gather's backward carries no coordinate cotangent.
+    Load-bearing assertion: backbone coordinates derive only from the
+    param-free input cloud, so no parameter gradient may change."""
 
     def test_param_grads_identical(self):
         from votenet_tpu.data.dataflow import batch_scenes

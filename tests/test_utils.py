@@ -60,21 +60,14 @@ class TestConfig:
         assert cfg.nms_iou == 0.5
         assert default_config().nms_iou == 0.25  # frozen original
 
-    def test_throughput_preset(self):
-        """--preset=throughput bundles exactly the measured speed opt-ins;
-        parity defaults (and everything else) are untouched."""
-        from votenet_tpu.config import throughput_config
+    def test_removed_knobs_are_rejected(self):
+        """Removed knobs are gone: a stale --flag must error, not be
+        silently dropped."""
+        for flag in ("--scatter_precision=exact", "--samlp=off"):
+            with pytest.raises(SystemExit):
+                config_from_args([flag])
 
-        cfg = throughput_config()
-        assert cfg.scatter_precision == "fast_bf16"
-        # gather_packing measured NEGATIVE (r5 packed_gather_bench) and is
-        # deliberately NOT in the preset
-        assert cfg.gather_packing == "none"
-        # everything NOT a speed opt-in equals the parity default
-        base = default_config()
-        assert cfg.replace(scatter_precision=base.scatter_precision) == base
-        # CLI overrides still apply on top of the preset
-        cfg2 = config_from_args(
-            ["--scatter_precision=exact"], base=throughput_config()
-        )
-        assert cfg2.scatter_precision == "exact"
+    def test_every_default_is_a_cli_override(self):
+        cfg = config_from_args(["--bq_precision=fast_bf16", "--remat=True"])
+        assert cfg.bq_precision == "fast_bf16" and cfg.remat is True
+        assert cfg.replace(bq_precision="exact", remat=False) == default_config()

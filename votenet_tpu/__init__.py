@@ -1,11 +1,11 @@
-"""votenet_tpu — a TPU-native (JAX / XLA / Pallas / pjit) VoteNet framework.
+"""votenet_tpu — a JAX (XLA / Pallas / pjit) VoteNet framework for NVIDIA GPUs.
 
 A from-scratch rebuild of the capabilities of qq456cvb/VoteNet (TF1.x /
-Tensorpack / CUDA reference at /root/reference) designed TPU-first:
+Tensorpack / CUDA reference at /root/reference):
 
 - the reference's four native op packages (``tf_ops/sampling``,
   ``tf_ops/grouping``, ``tf_ops/3d_interpolation``, ``tf_ops/3d_nms``)
-  become fixed-shape, mask-based XLA ops plus Pallas TPU kernels
+  become fixed-shape, mask-based XLA ops plus Pallas-Triton GPU kernels
   (:mod:`votenet_tpu.ops`);
 - the Tensorpack model / trainer / callback stack becomes a functional
   JAX model (:mod:`votenet_tpu.models`), a jit/pjit training harness
@@ -23,7 +23,7 @@ __all__ = ["Config", "default_config", "tiny_config", "VoteNetPredictor", "__ver
 
 
 def __getattr__(name):
-    # lazy: keep `import votenet_tpu` cheap (no jax/flax import at top level)
+    # lazy: keep `import votenet_tpu` cheap (no jax import at top level)
     if name == "VoteNetPredictor":
         from votenet_tpu.predictor import VoteNetPredictor
 

@@ -26,7 +26,7 @@ class Config:
     negative_thres: float = 0.6  # NEGATIVE_THRES
     proposal_num: int = 256      # PROPOSAL_NUM
 
-    # --- fixed-shape padding (TPU requires static shapes; the reference
+    # --- fixed-shape padding (XLA compiles static shapes; the reference
     # uses variable-length GT tensors padded per-batch, run.py:62-64) ---
     max_gt_boxes: int = 64       # static GT-box axis; reference pads to the
                                  # per-batch max with edge (replicated) boxes
@@ -71,44 +71,31 @@ class Config:
     # --- numerics / performance ---
     bn_momentum: float = 0.9     # tensorpack BatchNorm default decay
     bn_eps: float = 1e-5
-    compute_dtype: str = "float32"   # "bfloat16" to run MLPs on MXU in bf16
+    compute_dtype: str = "float32"   # "bfloat16" to run the MLPs in bf16
     mixed_precision: bool = False    # f32 coordinates/sa1/voting + bf16 for
                                      # the wide sa2+/FP/proposal feature
                                      # gathers and matmuls (the recipe from
                                      # the bf16 post-mortem, DESIGN.md; only
                                      # meaningful with compute_dtype=float32)
-    use_pallas: bool = True      # Pallas kernels on TPU; False forces the XLA
-                                 # twins everywhere (applied at entry points
-                                 # via ops.dispatch.apply_config)
-    scatter_precision: str = "exact"  # group_point-VJP products: "exact"
-                                 # (f32, parity with the reference's atomicAdd)
-                                 # or "fast_bf16" (~13% faster train step,
-                                 # ~1e-3 relative gradient rounding — see
-                                 # ops/dispatch.py)
-    bq_precision: str = "exact"  # ball-query distance cross-term: "exact"
-                                 # (f32 products -> reference-identical hit
-                                 # sets) or "fast_bf16" (single-pass MXU,
-                                 # cm-scale boundary band on TPU — see the
-                                 # deviation note in ops/grouping.py)
+    use_pallas: bool = True      # the Pallas-Triton FPS / ball-query kernels
+                                 # on a GPU; False forces the XLA twins
+                                 # everywhere (applied at entry points via
+                                 # ops.dispatch.apply_config)
+    bq_precision: str = "exact"  # ball-query distance form: "exact" (the
+                                 # oracle's f32 difference form -> reference-
+                                 # identical hit sets) or "fast_bf16" (matmul
+                                 # expansion, cm-scale boundary band — see
+                                 # the note in ops/grouping.py)
     gather_packing: str = "none"  # SA-layer train gather transport: "none"
                                  # (f32 rows, full parity) or "bf16_hilo"
                                  # (hi+lo bf16 coordinate pairs + bf16
-                                 # features — halves the grouped-tensor HBM
-                                 # bytes at sa2+ AND makes the backward
-                                 # scatter single-pass-exact; ~0.4% feature
-                                 # rounding, coords exact to ~0.06 mm;
-                                 # backbone layers only — see
+                                 # features: half the grouped-tensor bytes;
+                                 # ~0.4% feature rounding, coords exact to
+                                 # ~0.06 mm; backbone layers only — see
                                  # ops/dispatch.py gather_packing)
-    samlp: str = "off"           # fused SA-layer MLP+max-pool eval kernel
-                                 # (ops/pallas/samlp.py): "on" keeps grouped
-                                 # tensors in VMEM but measured 0.91-0.96x
-                                 # vs the XLA chain at EVERY live SA shape
-                                 # (benchmarks/samlp_layer_ab.py, v5e) —
-                                 # default off; kept as a tested opt-in
-    remat: bool = False          # rematerialize SA/FP blocks in backward:
-                                 # measured 32% SLOWER at B=8 (79.7 vs 116.3
-                                 # scenes/s, v5e round 3) — purely a memory
-                                 # knob for batches that don't otherwise fit
+    remat: bool = False          # rematerialize SA blocks in backward: a
+                                 # memory knob for batches that don't
+                                 # otherwise fit
 
     # --- data (reference run.py:99,129) ---
     # GT-box rejection criterion (dataset.py:282). The reference tests
@@ -156,42 +143,6 @@ def tiny_config(**overrides) -> Config:
         proposal_mlp2_hidden=(32, 32),
         proposal_num=16,
         max_gt_boxes=8,
-    )
-    base.update(overrides)
-    return Config(**base)
-
-
-def throughput_config(**overrides) -> Config:
-    """The documented speed preset (``--preset=throughput``): every opt-in
-    that measured FASTER end-to-end with bounded, characterized numerics
-    deviations, bundled behind one flag. The parity DEFAULTS are unchanged —
-    this is the "I want speed, I read the table" switch (DESIGN.md
-    "throughput preset" table for the measured scenes/s + held-out-mAP of
-    each knob):
-
-    - ``scatter_precision="fast_bf16"``: single-pass MXU gradient scatter,
-      ~1e-3 relative gradient rounding (ops/dispatch.py). Measured +9.3%
-      train step (benchmarks/packed_gather_bench.py grid, v5e round 5).
-      ACCURACY COST IS MEASURED AND REAL: held-out mAP@0.25 is lower at
-      EVERY retained checkpoint of both A/B pairs run — 0.648-0.650 vs
-      0.707-0.709 at the 4k-scene scale (seed 0, 90 epochs) and
-      0.259-0.264 vs 0.264-0.274 at the 1k-scene scale (seed 1, 100
-      epochs; benchmarks/ckpt_map_sweep.py, DESIGN.md round-5 tables).
-      Use this preset for throughput-critical experimentation; train
-      FINAL models on the parity defaults.
-
-    NOT included — measured negative and therefore killed from the preset
-    (kept as a tested opt-in): ``gather_packing="bf16_hilo"`` (0.975x /
-    0.990x vs "none" under exact / fast_bf16 scatter — the hi/lo pack +
-    upcast work costs more than the halved gather bytes save; same bench).
-
-    Serving-side bf16 (compute_dtype) is a separate knob: it pays at B>=8
-    batch serving (+5%) but LOSES at B=1 latency serving (-7%), so the
-    preset does not hard-wire it; run_eval --preset=throughput applies it
-    for batch evaluation.
-    """
-    base = dict(
-        scatter_precision="fast_bf16",
     )
     base.update(overrides)
     return Config(**base)

@@ -65,7 +65,11 @@ class ParallelSceneLoader:
     Maps ``fn`` (e.g. a process_scene closure) over ids with
     ``num_workers`` processes, yielding results in completion order (the
     reference's ZMQ pipe is also unordered). Falls back to serial when
-    ``num_workers <= 1``.
+    ``num_workers <= 1``. ``run_train`` does not use it.
+
+    The workers are forked: create the loader before JAX has opened a GPU
+    in this process, because a forked child must not inherit a live device
+    context (it neither can use it nor release it cleanly).
     """
 
     def __init__(self, fn: Callable, ids, num_workers: int = 0):

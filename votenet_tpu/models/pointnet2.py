@@ -1,11 +1,11 @@
-"""PointNet++ set-abstraction / feature-propagation modules, TPU-native.
+"""PointNet++ set-abstraction / feature-propagation modules.
 
 Rebuilds the reference layer library (``/root/reference/utils.py``) on top of
 the fixed-shape ops in :mod:`votenet_tpu.ops`. The reference's 1x1
 ``Conv2D`` + tensorpack ``BNReLU`` stacks become Dense layers on the channel
-axis (identical math; a 1x1 NHWC conv is a per-position matmul that XLA runs
-on the MXU) with flax BatchNorm configured to tensorpack defaults
-(momentum 0.9, eps 1e-5).
+axis (identical math; a 1x1 NHWC conv is a per-position matmul) with
+BatchNorm configured to tensorpack defaults (momentum 0.9, eps 1e-5); the
+layers are :mod:`votenet_tpu.models.layers`.
 
 Reference mapping:
 - :func:`sample_and_group`      <- utils.py:25-61 (incl. the ``sample_xyz``
@@ -21,39 +21,34 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
-import flax.linen as nn
+import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.sharding import Mesh
 
 from votenet_tpu import ops
+from votenet_tpu.models.layers import BatchNorm, Dense, Module, he_normal, relu
 
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
 
-# tensorpack Conv2D/FullyConnected default to variance_scaling(2.0) (He)
-# kernel init; flax's default is lecun_normal — match the reference.
-KERNEL_INIT = nn.initializers.he_normal()
-
-
-class CenteredDense(nn.Module):
+class CenteredDense(Module):
     """Dense layer with the grouped-xyz center-subtract folded in.
 
     ``(g - pad(center)) @ W + b == g @ W - center @ W[:3] + b`` — moving the
     subtract after the matmul keeps the narrow (..., 3)-shaped centered
-    tensor from ever materializing (a measured 1.7-2x win on the SA-layer
-    gather+MLP chain, benchmarks/fused_sa_bench.py). The identity is exact
+    tensor from ever materializing. The identity is exact
     real math but reassociates the float computation: outputs differ from
     the explicit centered path by matmul rounding (equivalence tests use
     rtol≈2e-2 at meter-scale inputs) — do not expect bitwise-equal evals
     between fused and non-fused checkpoints. Parameter names/shapes match
-    ``nn.Dense`` exactly, so checkpoints are interchangeable.
+    :class:`~votenet_tpu.models.layers.Dense` exactly, so checkpoints are
+    interchangeable.
     """
 
     features: int
     dtype: jnp.dtype = jnp.float32
 
-    @nn.compact
     def __call__(
         self,
         g_raw,
@@ -72,7 +67,7 @@ class CenteredDense(nn.Module):
         reassociation/matmul rounding, NOT bitwise equal to an explicit
         centered-then-matmul path. The gather meanwhile moves from
         Cin-float rows (12 bytes at sa1 — far
-        below the HBM sector size) to `features`-float rows, and the matmul
+        below a memory sector) to `features`-float rows, and the matmul
         runs over N unique points instead of M*S grouped duplicates.
 
         Mixed precision: ``g_raw`` may instead be an ``(xyz_src, feat_src)``
@@ -81,20 +76,19 @@ class CenteredDense(nn.Module):
         and the f32 center, and the cancellation-sensitive
         ``g_xyz@W3 - c@W3`` subtraction happens in f32 BEFORE any cast —
         while the wide feature operand runs in ``self.dtype`` (bf16):
-        feature gathers/matmuls move half the HBM bytes, which is the
-        binding resource (bench.py roofline: the model runs at the HBM
-        bandwidth peak). The absolute-coordinate quantization that broke
+        feature gathers/matmuls move half the memory bytes. The
+        absolute-coordinate quantization that broke
         bf16-everywhere training (DESIGN.md bf16 post-mortem) cannot occur
         here by construction.
         """
         if isinstance(g_raw, tuple):
             return self._split_call(g_raw, center, idx)
         kernel = self.param(
-            "kernel", KERNEL_INIT, (g_raw.shape[-1], self.features), jnp.float32
+            "kernel", he_normal, (g_raw.shape[-1], self.features), jnp.float32
         )
-        bias = self.param("bias", nn.initializers.zeros, (self.features,), jnp.float32)
-        g_raw, center, kernel, bias = nn.dtypes.promote_dtype(
-            g_raw, center, kernel, bias, dtype=self.dtype
+        bias = self.param("bias", jax.nn.initializers.zeros, (self.features,), jnp.float32)
+        g_raw, center, kernel, bias = (
+            a.astype(self.dtype) for a in (g_raw, center, kernel, bias)
         )
         h = g_raw @ kernel
         if idx is not None:
@@ -113,8 +107,8 @@ class CenteredDense(nn.Module):
         """
         xyz_src, feat_src = srcs
         cin = 3 + feat_src.shape[-1]
-        kernel = self.param("kernel", KERNEL_INIT, (cin, self.features), jnp.float32)
-        bias = self.param("bias", nn.initializers.zeros, (self.features,), jnp.float32)
+        kernel = self.param("kernel", he_normal, (cin, self.features), jnp.float32)
+        bias = self.param("bias", jax.nn.initializers.zeros, (self.features,), jnp.float32)
         k_xyz = kernel[:3]  # f32
         k_feat = kernel[3:].astype(self.dtype)
         feat_src = feat_src.astype(self.dtype)
@@ -130,7 +124,7 @@ class CenteredDense(nn.Module):
         return h_xyz.astype(self.dtype) + h_feat + bias.astype(self.dtype)
 
 
-class MLPStack(nn.Module):
+class MLPStack(Module):
     """Shared per-point MLP: Dense + BN + ReLU per width.
 
     ``final_activation=False`` leaves the last layer linear (the reference's
@@ -146,7 +140,6 @@ class MLPStack(nn.Module):
     bn_momentum: float = BN_MOMENTUM
     bn_eps: float = BN_EPS
 
-    @nn.compact
     def __call__(
         self,
         x,
@@ -159,19 +152,17 @@ class MLPStack(nn.Module):
             if i == 0 and center is not None:
                 x = CenteredDense(w, dtype=self.dtype, name="dense0")(x, center, idx)
             else:
-                x = nn.Dense(
-                    w, dtype=self.dtype, kernel_init=KERNEL_INIT, name=f"dense{i}"
-                )(x)
+                x = Dense(w, dtype=self.dtype, name=f"dense{i}")(x)
             if self.final_activation or not last:
                 if self.use_bn:
-                    x = nn.BatchNorm(
+                    x = BatchNorm(
                         use_running_average=not train,
                         momentum=self.bn_momentum,
                         epsilon=self.bn_eps,
                         dtype=self.dtype,
                         name=f"bn{i}",
                     )(x)
-                x = nn.relu(x)
+                x = relu(x)
         return x
 
 
@@ -201,8 +192,8 @@ def sample_and_group(
     else:
         idx, _ = ops.query_ball_point(radius, nsample, xyz, new_xyz)
     if points is not None:
-        # single fused gather of [xyz ‖ features] (gathers are the dominant
-        # cost of the SA layer on TPU; one wide gather beats two)
+        # single fused gather of [xyz ‖ features] (one wide gather instead
+        # of two)
         both = ops.group_point(jnp.concatenate([xyz, points], axis=-1), idx)
         grouped_xyz = both[..., :3] - new_xyz[:, :, None, :]
         grouped_points = both[..., 3:]
@@ -230,7 +221,7 @@ def sample_and_group_all(xyz: jnp.ndarray, points: Optional[jnp.ndarray], use_xy
     return new_xyz, new_points, idx, grouped_xyz
 
 
-class PointNetSAModule(nn.Module):
+class PointNetSAModule(Module):
     """PointNet Set Abstraction (reference utils.py:93-158).
 
     group -> shared MLP -> pool -> optional post-MLP (last layer linear).
@@ -255,16 +246,15 @@ class PointNetSAModule(nn.Module):
     split_coords: bool = False
     # coord_grad=False declares the xyz inputs non-differentiable (they are
     # stop_gradient'd): true for the backbone SA layers, whose coordinates
-    # derive only from the param-free input cloud. The fused gather's
-    # backward then scatters only the feature block — MXU-lane-aligned
-    # widths (131->128, 259->256), measured 19.4 -> 10.4 ms across
-    # sa2..sa4 at B=8. Must stay True for the proposal layer (its "xyz"
-    # are votes, which carry gradient to the voting MLP).
+    # derive only from the param-free input cloud, so XLA can drop the
+    # coordinate columns' cotangent from the fused gather's backward
+    # scatter. Must stay True for the proposal layer (its "xyz" are votes,
+    # which carry gradient to the voting MLP).
     coord_grad: bool = True
     # Point-axis (SP) sharding: when set, the layer's O(N) grouping stage
     # (FPS, ball query, gathers) runs point-sharded over this mesh's
     # ``sp_axis`` via parallel/point_sharded.py — bit-identical results,
-    # shard-local O(N/devices) working sets, collectives over ICI. The
+    # shard-local O(N/devices) working sets, collectives between cards. The
     # MLP/pool (O(npoint), no N dependence) stay replicated over sp_axis.
     # ``sp_batch_axis`` additionally shards the batch (dp x sp). Only the
     # ball-query grouping modes are supported (no knn/group_all).
@@ -279,77 +269,6 @@ class PointNetSAModule(nn.Module):
             name=name,
         )
 
-    def _fused_eval_mlp_pool(self, both, new_xyz, idx):
-        """Eval fast path: dense0 over the N unique points (project-before-
-        gather), ONE gather, then the whole affine/BN/ReLU/dense/max-pool
-        chain as a single Pallas kernel with the grouped tensor resident in
-        VMEM (ops/pallas/samlp.py — the SURVEY §7 step 3(a) fusion). Returns
-        the POOLED (B, M, w_last) features, or None when the kernel does not
-        apply (training BN needs whole-batch statistics; init must create
-        params; non-max pooling; bf16 module dtype uses the split path).
-
-        Numerics: dense0/gather/corr are the exact same ops as the XLA
-        chain; the in-kernel dense1+ matmuls run at the same f32 operand
-        precision — outputs match the XLA chain to float-fusion rounding
-        (~1e-6 relative, tested), not bitwise.
-        """
-        from votenet_tpu.ops.dispatch import (
-            samlp_enabled,
-            samlp_interpret,
-            samlp_precision,
-            use_pallas,
-        )
-
-        interpret = samlp_interpret()
-        if (
-            self.is_initializing()
-            or not samlp_enabled()
-            or not (use_pallas() or interpret)
-            or self.pooling != "max"
-            or not self.use_bn
-            or self.dtype != jnp.float32
-            or len(self.mlp) < 2
-        ):
-            return None
-        from votenet_tpu.ops.pallas.samlp import fused_sa_mlp_pool, samlp_supported
-
-        M, S = idx.shape[1], idx.shape[2]
-        widths = list(self.mlp)
-        if not samlp_supported(M, S, widths):
-            return None
-        params = self.get_variable("params", "mlp", None)
-        stats = self.get_variable("batch_stats", "mlp", None)
-        if params is None or stats is None:
-            return None
-
-        def bn_fold(i):
-            # flax eval BatchNorm: (x - mean) * rsqrt(var + eps) * gamma
-            # + beta — fold to per-channel scale/shift with its exact ops
-            g = params[f"bn{i}"]["scale"].astype(jnp.float32)
-            beta = params[f"bn{i}"]["bias"].astype(jnp.float32)
-            mean = stats[f"bn{i}"]["mean"].astype(jnp.float32)
-            var = stats[f"bn{i}"]["var"].astype(jnp.float32)
-            s = lax.rsqrt(var + self.bn_eps) * g
-            return s, beta - mean * s
-
-        W0 = params["dense0"]["kernel"].astype(jnp.float32)
-        b0 = params["dense0"]["bias"].astype(jnp.float32)
-        h_all = both.astype(jnp.float32) @ W0  # (B, N, w0) unique points
-        h0 = ops.group_point(h_all, idx)  # the ONE grouped-tensor gather
-        corr = new_xyz.astype(jnp.float32) @ W0[:3]  # (B, M, w0)
-        s0, t0 = bn_fold(0)
-        sh0 = (b0 - corr) * s0 + t0  # (B, M, w0)
-        layers = []
-        for i in range(1, len(widths)):
-            Wi = params[f"dense{i}"]["kernel"].astype(jnp.float32)
-            bi = params[f"dense{i}"]["bias"].astype(jnp.float32)
-            si, ti = bn_fold(i)
-            layers.append((Wi, si, bi * si + ti))
-        return fused_sa_mlp_pool(
-            h0, sh0, s0, layers, precision=samlp_precision(), interpret=interpret
-        )
-
-    @nn.compact
     def __call__(
         self,
         xyz: jnp.ndarray,
@@ -366,7 +285,6 @@ class PointNetSAModule(nn.Module):
             and self.pooling != "weighted_avg"
             and len(self.mlp) > 0
         )
-        already_pooled = False  # True when the Pallas kernel pooled in VMEM
         if self.sp_mesh is not None:
             if self.group_all or self.knn:
                 raise ValueError(
@@ -375,8 +293,7 @@ class PointNetSAModule(nn.Module):
             if self.split_coords:
                 raise ValueError(
                     "sp_mesh + split_coords (mixed precision) is not wired; "
-                    "run SP in f32 (mixed precision measured negative anyway, "
-                    "DESIGN.md)"
+                    "run SP in f32"
                 )
             from votenet_tpu.parallel.point_sharded import (
                 farthest_point_sample_sharded,
@@ -436,21 +353,16 @@ class PointNetSAModule(nn.Module):
             )
             # Inference: project-before-gather — dense0 runs over the N
             # unique points and the gather moves after it (CenteredDense
-            # docstring; +9.5% end-to-end, measured). Training keeps
-            # gather-first: project-first's backward must scatter the wide
-            # dense0 output gradient back to (B, N, w0) at EVERY SA layer —
-            # including sa1, which otherwise has no backward scatter at all
-            # (xyz carries no gradient) — measured 20% slower train step.
+            # docstring). Training keeps gather-first: project-first's
+            # backward must scatter the wide dense0 output gradient back to
+            # (B, N, w0) at EVERY SA layer — including sa1, which otherwise
+            # has no backward scatter at all (xyz carries no gradient).
             # The gather/dense commute is per-element identical forward
             # (dense is per-point linear), so the train/infer switch does
             # not itself change numerics. (Both paths share the
             # CenteredDense fold, whose reassociation of the center
             # subtract is exact math but not bitwise vs an explicit
             # centered path — see CenteredDense docstring.)
-            # (project-first at sa2+ only in training also measured ~96
-            # scenes/s — the backward cost is not sa1-specific: the dW
-            # chain serializes behind the dh scatter — so training is
-            # gather-first at every layer)
             if self.split_coords and points is not None:
                 # mixed precision: separate narrow-f32 xyz and wide-bf16
                 # feature gathers (the fused wide gather would force one
@@ -475,20 +387,15 @@ class PointNetSAModule(nn.Module):
                 ):
                     # Packed transport (opt-in, ops/dispatch.py): ONE bf16
                     # gather of [xyz_hi ‖ xyz_lo ‖ feat] — (6+C)*2 bytes/row
-                    # vs (3+C)*4, halving the dominant sa2+ grouped-tensor
-                    # HBM traffic — then f32 coordinate reconstruction
-                    # (hi+lo, ~16 mantissa bits) feeding the same f32
-                    # CenteredDense math via the split path. Backbone-only
-                    # (coord_grad=False): the hi/lo channels are dead in
-                    # backward (grad_skip_prefix=6 keeps the scatter at the
-                    # MXU-aligned feature width) and the bf16 feature
-                    # cotangent makes that scatter single-pass exact.
-                    # the optimization barrier is LOAD-BEARING on TPU: XLA's
-                    # bf16 propagation folds the f32->bf16->f32 round trip
-                    # to identity, which would make lo all-zeros (silently
-                    # degrading coords to plain bf16, ~0.4% instead of the
-                    # hi+lo ~1e-4 m) — found via the round-5 emit-xyz
-                    # prototype, where the same fold zeroed the split terms
+                    # vs (3+C)*4, halving the sa2+ grouped-tensor traffic —
+                    # then f32 coordinate reconstruction (hi+lo, ~16
+                    # mantissa bits) feeding the same f32 CenteredDense math
+                    # via the split path. Backbone-only (coord_grad=False):
+                    # the hi/lo channels are dead in backward.
+                    # The optimization barrier is load-bearing: XLA's bf16
+                    # propagation may fold the f32->bf16->f32 round trip to
+                    # identity, which would make lo all-zeros (silently
+                    # degrading coords to plain bf16)
                     hi = gather_xyz.astype(jnp.bfloat16)
                     lo = (
                         gather_xyz
@@ -497,7 +404,7 @@ class PointNetSAModule(nn.Module):
                     table = jnp.concatenate(
                         [hi, lo, points.astype(jnp.bfloat16)], axis=-1
                     )
-                    g = ops.group_point(table, idx, grad_skip_prefix=6)
+                    g = ops.group_point(table, idx)
                     g_xyz = g[..., :3].astype(jnp.float32) + g[
                         ..., 3:6
                     ].astype(jnp.float32)
@@ -505,23 +412,14 @@ class PointNetSAModule(nn.Module):
                         (g_xyz, g[..., 6:]), train, center=new_xyz
                     )
                 else:
-                    g_raw = ops.group_point(
-                        both,
-                        idx,
-                        grad_skip_prefix=0 if self.coord_grad else 3,
-                    )
+                    g_raw = ops.group_point(both, idx)
                     new_points = self._mlp_stack(self.mlp, "mlp")(
                         g_raw, train, center=new_xyz
                     )
             else:
-                pooled = self._fused_eval_mlp_pool(both, new_xyz, idx)
-                if pooled is not None:
-                    new_points = pooled
-                    already_pooled = True
-                else:
-                    new_points = self._mlp_stack(self.mlp, "mlp")(
-                        both, train, center=new_xyz, idx=idx
-                    )
+                new_points = self._mlp_stack(self.mlp, "mlp")(
+                    both, train, center=new_xyz, idx=idx
+                )
             grouped_xyz = None  # never materialized on this path
         else:
             if self.group_all:
@@ -535,9 +433,7 @@ class PointNetSAModule(nn.Module):
                 )
             new_points = self._mlp_stack(self.mlp, "mlp")(new_points, train)
 
-        if already_pooled:
-            pass  # the fused kernel max-pooled over the ball slots in VMEM
-        elif self.pooling == "max":
+        if self.pooling == "max":
             new_points = jnp.max(new_points, axis=2)
         elif self.pooling == "avg":
             new_points = jnp.mean(new_points, axis=2)
@@ -562,7 +458,7 @@ class PointNetSAModule(nn.Module):
         return new_xyz, new_points, idx
 
 
-class PointNetSAModuleMSG(nn.Module):
+class PointNetSAModuleMSG(Module):
     """Multi-scale-grouping SA module (reference utils.py:161-201).
 
     Present for API completeness; the VoteNet model never calls it (SURVEY
@@ -579,7 +475,6 @@ class PointNetSAModuleMSG(nn.Module):
     bn_momentum: float = BN_MOMENTUM
     bn_eps: float = BN_EPS
 
-    @nn.compact
     def __call__(self, xyz, points, train: bool):
         new_xyz = ops.gather_point(xyz, ops.farthest_point_sample(self.npoint, xyz))
         outs = []
@@ -602,7 +497,7 @@ class PointNetSAModuleMSG(nn.Module):
         return new_xyz, jnp.concatenate(outs, axis=-1)
 
 
-class PointNetFPModule(nn.Module):
+class PointNetFPModule(Module):
     """Feature propagation: 3-NN inverse-distance upsampling + MLP
     (reference utils.py:266-294). Stays fully on device — the reference
     bounced to CPU here (its three_nn/three_interpolate are CPU-only ops).
@@ -614,7 +509,6 @@ class PointNetFPModule(nn.Module):
     bn_momentum: float = BN_MOMENTUM
     bn_eps: float = BN_EPS
 
-    @nn.compact
     def __call__(self, xyz1, xyz2, points1, points2, train: bool):
         # three_nn + weights always run on f32 coordinates; under mixed
         # precision only the (wide) feature interpolation/concat runs in the

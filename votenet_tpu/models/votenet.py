@@ -1,6 +1,6 @@
 """The VoteNet model: backbone + deep Hough voting + proposal head.
 
-TPU-native rebuild of the reference graph (``/root/reference/model.py``):
+Rebuild of the reference graph (``/root/reference/model.py``):
 4 SA layers + 2 FP layers (model.py:39-49), a 3-layer shared voting MLP that
 offsets both seed coordinates and features (model.py:53-60), and a proposal
 SA module whose FPS runs on the seeds while gathering the votes
@@ -25,21 +25,20 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
-import flax.linen as nn
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
 from votenet_tpu.config import Config
+from votenet_tpu.models.layers import BatchNorm, Dense, Module, relu, remat
 from votenet_tpu.models.pointnet2 import (
     BN_EPS,
     BN_MOMENTUM,
-    KERNEL_INIT,
     PointNetFPModule,
     PointNetSAModule,
 )
 
 
-class VotingModule(nn.Module):
+class VotingModule(Module):
     """Shared FC stack producing per-seed (xyz, feature) offsets.
 
     Mirrors model.py:53-60: widths (256, 256, 259), BN+ReLU on all but the
@@ -52,24 +51,23 @@ class VotingModule(nn.Module):
     bn_momentum: float = BN_MOMENTUM
     bn_eps: float = BN_EPS
 
-    @nn.compact
     def __call__(self, seeds: jnp.ndarray, train: bool) -> jnp.ndarray:
         x = seeds
         for i, w in enumerate(self.units):
-            x = nn.Dense(w, dtype=self.dtype, kernel_init=KERNEL_INIT, name=f"voting{i}")(x)
+            x = Dense(w, dtype=self.dtype, name=f"voting{i}")(x)
             if i < len(self.units) - 1:
-                x = nn.BatchNorm(
+                x = BatchNorm(
                     use_running_average=not train,
                     momentum=self.bn_momentum,
                     epsilon=self.bn_eps,
                     dtype=self.dtype,
                     name=f"voting{i}_bn",
                 )(x)
-                x = nn.relu(x)
+                x = relu(x)
         return x
 
 
-class VoteNet(nn.Module):
+class VoteNet(Module):
     """Full VoteNet forward pass -> end-points dict.
 
     ``sp_mesh`` enables point-axis (SP) sharding for the large-N backbone:
@@ -90,7 +88,6 @@ class VoteNet(nn.Module):
     sp_batch_axis: Optional[str] = None
     sp_min_points: int = 4096
 
-    @nn.compact
     def __call__(self, points: jnp.ndarray, train: bool = False) -> Dict[str, Any]:
         cfg = self.config
         dtype = jnp.dtype(cfg.compute_dtype)
@@ -100,7 +97,7 @@ class VoteNet(nn.Module):
         # offsets feed vote coordinates); the wide sa2+/FP/proposal feature
         # gathers + matmuls run bf16 via the split CenteredDense. This is
         # the recipe the bf16-everywhere post-mortem called for (DESIGN.md):
-        # the model is HBM-bandwidth-bound, and features are the bytes.
+        # features are most of the bytes the model moves.
         mixed = cfg.mixed_precision and dtype == jnp.float32
         feat_dtype = jnp.bfloat16 if mixed else dtype
 
@@ -110,8 +107,8 @@ class VoteNet(nn.Module):
         # optional rematerialization: recompute SA activations in the
         # backward pass instead of keeping the (B, npoint, nsample, C)
         # grouped tensors alive across the whole graph
-        # static_argnums counts self: (self, xyz, points, train) -> train is 3
-        sa_cls = nn.remat(PointNetSAModule, static_argnums=(3,)) if cfg.remat else PointNetSAModule
+        # static_argnums index the call's arguments (xyz, points, train)
+        sa_cls = remat(PointNetSAModule, static_argnums=(2,)) if cfg.remat else PointNetSAModule
 
         bn_kw = dict(bn_momentum=cfg.bn_momentum, bn_eps=cfg.bn_eps)
         xyz, feats = l0_xyz, l0_points
@@ -135,10 +132,9 @@ class VoteNet(nn.Module):
                 dtype=feat_dtype if (mixed and i > 0) else dtype,
                 split_coords=mixed and i > 0,
                 # backbone coordinates derive only from the param-free input
-                # cloud -> no gradient; lets the fused gather's backward
-                # scatter run at MXU-aligned feature width (PointNetSAModule
-                # .coord_grad). The proposal layer below keeps the default
-                # (its xyz are votes, which carry gradient).
+                # cloud -> no gradient (PointNetSAModule.coord_grad). The
+                # proposal layer below keeps the default (its xyz are votes,
+                # which carry gradient).
                 coord_grad=False,
                 name=f"sa{i + 1}",
                 **bn_kw,

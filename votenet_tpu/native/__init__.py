@@ -15,7 +15,7 @@ from typing import Optional
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SO = os.path.join(_DIR, "libvotenet_native.so")
+_SO = os.path.join(_DIR, "build", "libvotenet_native.so")  # gitignored
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 

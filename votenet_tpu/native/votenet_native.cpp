@@ -3,7 +3,7 @@
 // The reference implements its host-side math as TF C++ CPU kernels
 // (tf_ops/3d_nms/tf_nms3d.cpp) and leans on shapely/numpy loops for eval
 // (evaluator.py:26-161) and np.loadtxt for depth files (sunutils.py:178-180).
-// This library provides the TPU framework's native equivalents, exposed
+// This library provides the framework's native equivalents, exposed
 // through a plain C ABI consumed via ctypes (no pybind11 in the image):
 //
 //   vn_parse_floats   - fast whitespace-float parser (depth .txt loader)

@@ -1,9 +1,9 @@
-"""Core point-cloud ops: TPU-native equivalents of the reference's tf_ops.
+"""Core point-cloud ops: JAX equivalents of the reference's tf_ops.
 
-Each op exists as a pure-XLA implementation (`jnp`/`lax`, works on CPU/TPU,
-serves as the correctness oracle) and — for the hot ones — a Pallas TPU
-kernel in :mod:`votenet_tpu.ops.pallas` selected via
-:func:`votenet_tpu.ops.dispatch.use_pallas`.
+Each op exists as a pure-XLA implementation (`jnp`/`lax`, runs on any
+backend, serves as the correctness oracle) and — for FPS and ball query —
+a Pallas-Triton GPU kernel in :mod:`votenet_tpu.ops.pallas` selected via
+:func:`votenet_tpu.ops.dispatch.use_gpu_kernels`.
 
 Reference mapping (all fixed-shape here; the reference returns
 variable-length from NMS):
@@ -24,7 +24,7 @@ nms3d                 tf_ops/3d_nms/tf_nms3d.py:11 (CPU C++)
 ====================  ==========================================
 """
 
-from votenet_tpu.ops.dispatch import pallas_disabled, set_use_pallas, use_pallas
+from votenet_tpu.ops.dispatch import pallas_disabled, set_use_pallas, use_gpu_kernels
 from votenet_tpu.ops.sampling import farthest_point_sample, gather_point, prob_sample
 from votenet_tpu.ops.grouping import (
     query_ball_point,
@@ -50,5 +50,5 @@ __all__ = [
     "three_nn", "three_nn_dense", "three_nn_streaming", "three_interpolate",
     "box3d_iou_pairwise", "box3d_iou_matrix",
     "nms3d", "nms3d_indices",
-    "use_pallas", "set_use_pallas", "pallas_disabled",
+    "use_gpu_kernels", "set_use_pallas", "pallas_disabled",
 ]

@@ -2,39 +2,61 @@
 
 from __future__ import annotations
 
-import jax.numpy as jnp
+import functools
 
-# Point-count scaling gates (SURVEY §5). Two kinds of limits:
-#
-# 1. LARGE_N_THRESHOLD — VMEM cap of the BATCHED Pallas FPS kernel, whose
-#    resident planes cost 8 sublanes x N x 4 surfaces x 4 B = 128*N bytes
-#    (~10.5 MB at 81920 against Mosaic's ~12 MB usable scope). The row-wise
-#    kernel folds one row over (sublanes, lanes) and only needs ~36*N bytes
-#    — see ops/pallas/fps.py ROWWISE_MAX_N.
-# 2. DENSE_BYTES_BUDGET — HBM-footprint budget for the dense ball-query /
-#    three_nn paths, whose (B, M, N)-shaped intermediates are the O(N)
-#    memory. The dispatch is BYTE-based, not N-based: a small batch can run
-#    the (9x faster) dense path at point counts where a full batch must
-#    stream — measured 163840 pts at B=2: dense 21 ms/scene vs streaming
-#    102 ms/scene (benchmarks/large_n_scaling.py). v5e has 16 GB HBM; 10 GB
-#    of query intermediates leaves room for the model around them and
-#    reproduces the previous N<=81920-at-B=8 dense behavior exactly.
-#
-# Retune in ONE place for new TPU generations.
-LARGE_N_THRESHOLD = 81920
-DENSE_BYTES_BUDGET = 10 * 1024**3
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+# Budget of the dense XLA ball-query / three_nn paths where the backend
+# reports no memory limit (the CPU). Their (B, M, N)-shaped intermediates
+# are the O(N) memory; above the budget the ops stream in blocks.
+_HOST_DENSE_BYTES = 4 * 1024**3
+
+
+def dense_bytes_budget() -> int:
+    """Bytes the dense paths' (B, M, N) intermediates may take.
+
+    A quarter of what the default device lets this process allocate
+    (``memory_stats()["bytes_limit"]``), leaving the rest to the model and
+    its activations; the dispatch is byte-based, so a small batch keeps the
+    dense path at point counts where a full batch must stream.
+    """
+    stats = jax.local_devices()[0].memory_stats() or {}
+    limit = stats.get("bytes_limit")
+    return int(limit) // 4 if limit else _HOST_DENSE_BYTES
 
 
 def bq_dense_bytes(B: int, M: int, N: int) -> int:
-    """Peak HBM bytes of the dense ball query's (B, M, N) intermediates:
+    """Peak bytes of the dense ball query's (B, M, N) intermediates:
     f32 distances (4) + bf16 hit mask (2), conservatively co-resident."""
     return B * M * N * 6
 
 
 def three_nn_dense_bytes(B: int, N: int, M: int) -> int:
-    """Peak HBM bytes of dense three_nn's (B, N, M) f32 distance matrix
+    """Peak bytes of dense three_nn's (B, N, M) f32 distance matrix
     (the masked argmin passes mutate it in place under XLA fusion)."""
     return B * N * M * 4
+
+
+@functools.lru_cache(maxsize=None)
+def radius_sq_threshold(radius: float) -> float:
+    """The f32 bound ``t`` with ``d2 < t`` exactly when the reference's
+    test ``max(sqrt(d2), 1e-20) < radius`` holds (tf_grouping_g.cu:22-24).
+
+    ``sqrt`` is monotone and correctly rounded, so the hit set is
+    ``d2 < t`` for ``t`` the smallest f32 whose square root is not below
+    ``radius``. ``t`` sits within an ulp of ``radius**2`` but can differ
+    from it (for r = 0.2 the float just below r*r already rounds to r), so
+    comparing against ``radius**2`` would flip boundary hits.
+    """
+    r = np.float32(radius)
+    t = np.float32(r * r)
+    while np.sqrt(t) >= r and t > 0:
+        t = np.nextafter(t, np.float32(0))
+    while np.sqrt(t) < r:
+        t = np.nextafter(t, np.float32(np.inf))
+    return float(t)
 
 
 def pairwise_sqdist(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
@@ -43,32 +65,24 @@ def pairwise_sqdist(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     a: (..., M, 3), b: (..., N, 3) -> (..., M, N).
 
     Computed as an explicit difference-square-sum (XLA fuses this into a
-    single loop, nothing 4-D hits HBM) rather than the matmul expansion
-    ``|a|^2+|b|^2-2ab`` — the direct form is exact. Used by the oracle /
-    parity paths (query_ball_point_topk, knn_point, three_nn) AND — since
-    round 3 made ``bq_precision="exact"`` the default — by the production
-    ball query (both the XLA hierarchical twin and the Pallas kernel use
-    this same rounding sequence for their hit tests, which is what makes
-    them bit-identical to the oracle). The mm expansion remains the opt-in
-    "fast_bf16" speed mode; see the RADIUS-BOUNDARY PRECISION note in
-    :mod:`votenet_tpu.ops.grouping` (the one authoritative statement).
+    single loop, nothing 4-D is written) rather than the matmul expansion
+    ``|a|^2+|b|^2-2ab``: the direct form is the oracle's own rounding
+    sequence. Used by the oracle / parity paths (query_ball_point_topk,
+    knn_point, three_nn) and by the "exact" ball query; see the
+    RADIUS-BOUNDARY PRECISION note in :mod:`votenet_tpu.ops.grouping`.
     """
     diff = a[..., :, None, :] - b[..., None, :, :]
     return jnp.sum(diff * diff, axis=-1)
 
 
 def pairwise_sqdist_mm(a: jnp.ndarray, b: jnp.ndarray, precision=None) -> jnp.ndarray:
-    """MXU-friendly squared distances via the matmul expansion.
+    """Squared distances via the matmul expansion ``|a|^2+|b|^2-2ab``.
 
-    ``precision`` is forwarded to the cross-term einsum and MATTERS on TPU:
-    at the DEFAULT precision the MXU rounds the f32 coordinate operands to
-    bf16 (~0.4% relative — centimeter-scale at room scale), while
-    ``lax.Precision.HIGHEST`` splits them into bf16 passes covering the full
-    mantissa, leaving only few-ulp reassociation error vs the exact
-    difference form. Even HIGHEST is NOT safe for strict index decisions
-    (the reassociation band still flips ball-query slots at the larger
-    radii — measured on v5e); such callers use :func:`pairwise_sqdist`
-    in their exact mode instead (see ``ops.dispatch.bq_precision``).
+    ``precision`` is forwarded to the cross-term einsum. At the default
+    precision a GPU runs the f32 product in TF32 (about three decimal
+    digits), and even ``lax.Precision.HIGHEST`` reassociates the sum, so
+    this form is never safe for strict index decisions; the ball query uses
+    it only in its opt-in "fast_bf16" mode.
     """
     a2 = jnp.sum(a * a, axis=-1)
     b2 = jnp.sum(b * b, axis=-1)

@@ -1,19 +1,19 @@
-"""Backend dispatch: Pallas TPU kernels vs their XLA twins.
+"""Backend dispatch: GPU kernels vs their XLA twins.
 
-Every hot op has two implementations with identical semantics: a Pallas TPU
-kernel (:mod:`votenet_tpu.ops.pallas`) and a pure-XLA twin that runs on any
-backend and serves as the correctness oracle. This module owns the choice:
+The hot ops with a hand-written kernel (farthest-point sampling, ball query)
+have two implementations with identical semantics: a Pallas-Triton kernel
+(:mod:`votenet_tpu.ops.pallas`) and a pure-XLA twin that runs on any backend
+and serves as the correctness oracle. This module owns the choice:
 
-- :func:`use_pallas` — True iff Pallas kernels should be used right now
-  (enabled AND running on a TPU backend). Ops consult this at trace time.
-- :func:`set_use_pallas` — flip the global gate; ``Config.use_pallas`` is
+- :func:`use_gpu_kernels` — True iff the kernels should be used right now
+  (enabled AND the default backend is a GPU). Ops consult this at trace
+  time; on the CPU, where the tests run, it is always False.
+- :func:`set_use_pallas` — flip the global switch; ``Config.use_pallas`` is
   applied through this by the training/eval entry points, so
-  ``--use_pallas=False`` genuinely forces the XLA twins even on TPU.
+  ``--use_pallas=False`` forces the XLA twins on the GPU (A/B timing).
 - :func:`pallas_disabled` — context manager for tests/debugging.
 
-The reference has no equivalent (its CUDA ops are the only implementation);
-this is the TPU-native replacement for "which .so did tf.load_op_library
-pick up".
+The reference has no equivalent (its CUDA ops are the only implementation).
 """
 
 from __future__ import annotations
@@ -24,16 +24,16 @@ _enabled: bool = True
 
 
 def set_use_pallas(enabled: bool) -> None:
-    """Globally enable/disable Pallas kernels (XLA twins used when False)."""
+    """Globally enable/disable the GPU kernels (XLA twins used when False)."""
     global _enabled
     _enabled = bool(enabled)
 
 
-def use_pallas() -> bool:
-    """True iff ops should dispatch to Pallas kernels for this trace."""
-    from votenet_tpu.ops.pallas import tpu_available
+def use_gpu_kernels() -> bool:
+    """True iff ops should dispatch to the GPU kernels for this trace."""
+    from votenet_tpu.ops.pallas import gpu_available
 
-    return _enabled and tpu_available()
+    return _enabled and gpu_available()
 
 
 @contextlib.contextmanager
@@ -48,45 +48,16 @@ def pallas_disabled():
         _enabled = prev
 
 
-# --- gradient-scatter precision (group_point backward) ---
-#
-# "exact":     per-operand HIGHEST on the update operand — every product is
-#              the exact f32 update value (matches XLA's native scatter-add
-#              up to summation order; parity with the reference's f32
-#              atomicAdd products, tf_grouping_g.cu:61-78). Default.
-# "fast_bf16": single-pass MXU einsum; update values are bf16-rounded before
-#              the multiply (~1e-3 relative on the gradient). Measured 2026-08
-#              (benchmarks/scatter_bench.py, v5e): live-shape scatter total
-#              16.2 ms vs 24.8 ms exact — ~13% faster full train step.
-_scatter_precision: str = "exact"
-
-
-def set_scatter_precision(mode: str) -> None:
-    """Set the group_point-VJP precision mode ("exact" | "fast_bf16")."""
-    global _scatter_precision
-    if mode not in ("exact", "fast_bf16"):
-        raise ValueError(f"scatter_precision must be 'exact' or 'fast_bf16', got {mode!r}")
-    _scatter_precision = mode
-
-
-def scatter_precision() -> str:
-    """Current gradient-scatter precision mode (consulted at trace time)."""
-    return _scatter_precision
-
-
 # --- ball-query distance precision (query_ball_point hit test) ---
 #
-# "exact":     the strict dist^2 < r^2 hit test uses the exact
-#              difference-square distance form (the oracle's own formula) —
-#              index/count outputs BIT-IDENTICAL to reference semantics by
-#              construction, verified at every live shape on v5e
-#              (benchmarks/tpu_kernel_checks.py). Default: grouped features
-#              are parity-critical inputs to everything downstream.
-# "fast_bf16": |a|^2+|b|^2-2ab MXU matmul — on TPU the coordinate operands
-#              are bf16-rounded (~0.4% relative), a CENTIMETER-scale
-#              boundary band at room scale: measured 35% of selected sa1
-#              indices and 1% of counts flip vs the oracle on clustered
-#              clouds. ~2.5 ms faster at sa1 (v5e round 3).
+# "exact":     the strict hit test uses the exact difference-square distance
+#              form (the oracle's own formula): index/count outputs are
+#              bit-identical to the reference semantics by construction.
+#              Default: grouped features feed everything downstream.
+# "fast_bf16": the |a|^2+|b|^2-2ab matmul expansion at default matmul
+#              precision, whose rounding of the coordinate operands moves
+#              the ball boundary by centimetres at room scale; not parity,
+#              and always the XLA twin (see ops/grouping.py).
 _bq_precision: str = "exact"
 
 
@@ -104,65 +75,6 @@ def bq_precision() -> str:
     return _bq_precision
 
 
-# --- fused SA-layer MLP+pool kernel (eval path) ---
-#
-# "on":  PointNetSAModule's eval forward runs the grouped affine/MLP/max-pool
-#        chain as one Pallas kernel (ops/pallas/samlp.py) — the grouped
-#        (B, M, S, w) tensors stay in VMEM instead of round-tripping HBM
-#        between every dense. Numerics: same matmul precision ("f32"), same
-#        fold algebra as the XLA chain (equivalence-tested); not bitwise
-#        (different fusion boundaries reassociate the affine arithmetic).
-# "off": the XLA chain (any backend; the correctness oracle). DEFAULT:
-#        measured 0.91-0.96x (slower) than the XLA chain at every live SA
-#        shape on v5e — XLA overlaps the grouped chain's HBM traffic with
-#        MXU work well enough that the VMEM-residency win doesn't pay for
-#        the kernel's serialized tile grid (benchmarks/samlp_layer_ab.py,
-#        benchmarks/fused_decomp.py; round 4).
-_samlp: str = "off"
-_samlp_interpret: bool = False  # tests: run the kernel interpreted on CPU
-_samlp_precision: str = "f32"  # matmul operand precision: "f32" | "bf16"
-
-
-def set_samlp(mode: str) -> None:
-    """Enable/disable the fused SA-MLP+pool eval kernel ("on" | "off")."""
-    global _samlp
-    if mode not in ("on", "off"):
-        raise ValueError(f"samlp must be 'on' or 'off', got {mode!r}")
-    _samlp = mode
-
-
-def samlp_enabled() -> bool:
-    return _samlp == "on"
-
-
-def samlp_interpret() -> bool:
-    return _samlp_interpret
-
-
-def set_samlp_precision(mode: str) -> None:
-    """Matmul operand precision inside the fused SA-MLP kernel."""
-    global _samlp_precision
-    if mode not in ("f32", "bf16"):
-        raise ValueError(f"samlp_precision must be 'f32' or 'bf16', got {mode!r}")
-    _samlp_precision = mode
-
-
-def samlp_precision() -> str:
-    return _samlp_precision
-
-
-@contextlib.contextmanager
-def samlp_interpreted():
-    """Force the fused SA-MLP kernel in interpret mode (CPU tests)."""
-    global _samlp_interpret
-    prev = _samlp_interpret
-    _samlp_interpret = True
-    try:
-        yield
-    finally:
-        _samlp_interpret = prev
-
-
 # --- SA-layer gather transport packing (train fused path) ---
 #
 # "none":      the fused [xyz ‖ feat] group gather moves f32 rows — every
@@ -170,19 +82,13 @@ def samlp_interpreted():
 # "bf16_hilo": the gather TABLE is packed bf16 — coordinates as a Dekker-
 #              style hi+lo bf16 pair (hi = bf16(x), lo = bf16(x - f32(hi)):
 #              ~16 mantissa bits ≈ 0.06 mm at room scale) and features
-#              bf16-rounded — so the dominant train-step byte sink (the
-#              (B, M, S, 3+C) grouped-tensor HBM traffic at sa2+,
-#              benchmarks/ablation_profile.py) moves (6+C)*2 bytes/row
-#              instead of (3+C)*4. Compute stays f32: the packed channels
-#              are upcast in the consumer matmul's operand read
-#              (CenteredDense._split_call). Backward synergy: the gather
-#              cotangent is bf16, whose one-hot scatter products are EXACT
-#              in a single MXU pass (scatter_add), so packed mode gets the
-#              fast_bf16-scatter speed with no extra rounding beyond the
-#              forward transport cast. Applies only to backbone SA layers
-#              (coord_grad=False, points present): coordinate gradients
-#              never touch bf16. ~0.4% relative rounding on sa2+ features
-#              and their gradients — convergence A/B in DESIGN.md.
+#              bf16-rounded — so the (B, M, S, 3+C) grouped tensor moves
+#              (6+C)*2 bytes/row instead of (3+C)*4. Compute stays f32: the
+#              packed channels are upcast in the consumer matmul's operand
+#              read (CenteredDense split path). Applies only to backbone SA
+#              layers (coord_grad=False, points present): coordinate
+#              gradients never touch bf16. ~0.4% relative rounding on sa2+
+#              features and their gradients.
 _gather_packing: str = "none"
 
 
@@ -204,7 +110,5 @@ def gather_packing() -> str:
 def apply_config(config) -> None:
     """Apply every dispatch-relevant Config knob (entry-point helper)."""
     set_use_pallas(config.use_pallas)
-    set_scatter_precision(config.scatter_precision)
     set_bq_precision(config.bq_precision)
-    set_samlp(getattr(config, "samlp", "off"))
-    set_gather_packing(getattr(config, "gather_packing", "none"))
+    set_gather_packing(config.gather_packing)

@@ -1,13 +1,14 @@
 """Ball-query grouping, feature gather, kNN and partial selection.
 
-TPU-native rebuild of the reference CUDA package ``tf_ops/grouping``
-(`tf_grouping.py`, `tf_grouping_g.cu`), recast as fixed-shape masked ops.
+Rebuild of the reference CUDA package ``tf_ops/grouping``
+(`tf_grouping.py`, `tf_grouping_g.cu`), recast as fixed-shape ops.
 
 Parity-critical semantics of ``query_ball_point`` (tf_grouping_g.cu:13-35):
 
-- a dataset point k is a hit iff ``max(dist, 1e-20) < radius`` with *strict*
-  comparison on euclidean distance (equivalent to ``dist2 < radius**2`` for
-  any radius > 1e-20);
+- a dataset point k is a hit iff ``max(sqrt(dist2), 1e-20) < radius``
+  with a *strict* comparison, where ``dist2`` is the f32 difference-square
+  sum; every implementation here tests the equivalent
+  ``dist2 < radius_sq_threshold(radius)`` (:mod:`votenet_tpu.ops.common`);
 - the output takes the FIRST ``nsample`` hits in dataset index order;
 - slots past the last hit are filled with the FIRST hit's index (the CUDA
   kernel pre-fills all slots on the first hit, tf_grouping_g.cu:26-29);
@@ -17,55 +18,53 @@ If a query ball is empty the reference leaves the row uninitialized (never
 happens in the model: every query point is a member of the dataset cloud, so
 it always hits itself). We define the empty case as index 0.
 
-RADIUS-BOUNDARY PRECISION (the ONE authoritative statement; docstrings
+Implementations: on a GPU the Pallas-Triton kernel
+(:mod:`votenet_tpu.ops.pallas.ballquery`, the reference's scan shape);
+elsewhere, or with ``Config.use_pallas=False``, the XLA twins below: the
+dense hierarchical query, or the streaming one when the dense (B, M, N)
+intermediates exceed :func:`~votenet_tpu.ops.common.dense_bytes_budget`.
+
+RADIUS-BOUNDARY PRECISION (the one authoritative statement; docstrings
 elsewhere defer here). The mode is ``ops.dispatch.bq_precision()``:
 
-- "exact" (the default): :func:`query_ball_point_dense` computes squared
-  distances with the same difference-square form as the oracle
-  (:func:`~votenet_tpu.ops.common.pairwise_sqdist`), so the hit mask —
-  and therefore indices and counts — is BIT-IDENTICAL to the reference
-  semantics by construction; verified on v5e at every live model shape on
-  clustered clouds (benchmarks/tpu_kernel_checks.py). Cost ~+2.5 ms at
-  sa1 vs the fast mode. (A ``Precision.HIGHEST`` matmul-expansion variant
-  measured the same speed but still flips slots through its few-ulp
-  reassociation band at the larger radii — rejected.)
-- "fast_bf16": the MXU matmul expansion ``|a|^2+|b|^2-2ab`` at default
-  TPU precision, which rounds the COORDINATE OPERANDS to bf16 (~0.4%
-  relative — a centimeter-scale boundary band at room scale): measured
-  35% of selected sa1 indices and 1% of counts flip vs the oracle on
-  clustered clouds. Rounds 1-3 trained fine with it (held-out mAP 0.70,
-  DESIGN.md — ball membership at the boundary is detection-neutral in
-  practice), so it stays available as an opt-in speed mode, but it is
-  NOT reference parity.
+- "exact" (the default): squared distances use the oracle's own
+  difference-square form (:func:`~votenet_tpu.ops.common.pairwise_sqdist`),
+  so indices and counts are bit-identical to the reference semantics.
+- "fast_bf16": the matmul expansion ``|a|^2+|b|^2-2ab`` at default matmul
+  precision, which rounds the coordinate operands (bf16 on some
+  accelerators, TF32 on a GPU): a boundary band of centimetres at room
+  scale, so it is NOT reference parity. Always the XLA twin.
 
-:func:`query_ball_point_topk` (the oracle) uses the exact difference form
+:func:`query_ball_point_topk` (the oracle) uses the exact form
 unconditionally and is reference-identical bit-for-bit.
 """
 
 from __future__ import annotations
 
 import functools
-import math
 
 import jax
 import jax.numpy as jnp
 from jax import lax
 
 from votenet_tpu.ops import common
-from votenet_tpu.ops.common import pairwise_sqdist, pairwise_sqdist_mm
+from votenet_tpu.ops.common import (
+    pairwise_sqdist,
+    pairwise_sqdist_mm,
+    radius_sq_threshold,
+)
 
 
 @functools.partial(jax.jit, static_argnums=(0, 1))
 def query_ball_point_topk(radius: float, nsample: int, xyz1: jnp.ndarray, xyz2: jnp.ndarray):
     """Reference XLA formulation via top_k over index keys.
 
-    Simple and exact, but lax.top_k over the full N axis lowers to a sort on
-    TPU (~hundreds of ms at SUN RGB-D sizes); kept as the readable oracle.
-    Use :func:`query_ball_point` (hierarchical) in the model path.
+    Simple and exact, but lax.top_k over the full N axis sorts; kept as the
+    readable oracle. Use :func:`query_ball_point` in the model path.
     """
     d2 = pairwise_sqdist(xyz2.astype(jnp.float32), xyz1.astype(jnp.float32))
     N = xyz1.shape[1]
-    hit = d2 < jnp.float32(radius) ** 2  # (B, M, N), strict
+    hit = d2 < jnp.float32(radius_sq_threshold(radius))  # (B, M, N), strict
     # first-`nsample`-hits-in-index-order via top_k over negated index keys:
     # hits keep their index, misses get sentinel N; the nsample smallest keys
     # are the first nsample hits (ascending), padded with the sentinel.
@@ -80,63 +79,36 @@ def query_ball_point_topk(radius: float, nsample: int, xyz1: jnp.ndarray, xyz2: 
     return lax.stop_gradient(idx), lax.stop_gradient(pts_cnt)
 
 
-_BQ_CHUNK = 128  # lane-width chunks for the hierarchical search
-
-# HBM-footprint budget for the dense path's (B, M, N) intermediates; above
-# it the query streams in blocks. Byte-based (not N-based) so small batches
-# keep the ~9x-faster dense path at large point counts — see ops/common.py.
-DENSE_BYTES_BUDGET = common.DENSE_BYTES_BUDGET
+_BQ_CHUNK = 128  # chunk width of the hierarchical search
 
 
 def query_ball_point(radius: float, nsample: int, xyz1: jnp.ndarray, xyz2: jnp.ndarray):
     """Fixed-radius neighborhood query (backend/size-dispatched).
 
-    Routes to :func:`query_ball_point_streaming` when the dense (B, M, N)
-    intermediates exceed ``DENSE_BYTES_BUDGET``, else the dense hierarchical
-    query. Identical semantics either way (exact-equality tested).
+    The GPU kernel when :func:`votenet_tpu.ops.dispatch.use_gpu_kernels`
+    holds and the mode is "exact"; otherwise the streaming twin when the
+    dense (B, M, N) intermediates exceed the dense budget, else the dense
+    twin. Identical semantics every way (exact-equality tested).
     """
+    from votenet_tpu.ops.dispatch import bq_precision, use_gpu_kernels
+
+    if use_gpu_kernels() and bq_precision() == "exact":
+        from votenet_tpu.ops.pallas.ballquery import query_ball_point_gpu
+
+        return query_ball_point_gpu(radius, nsample, xyz1, xyz2)
     B, N = xyz1.shape[0], xyz1.shape[1]
     M = xyz2.shape[1]
-    if _pallas_bq_route(N, M, nsample):
-        # the Pallas kernel has NO (B, M, N) HBM intermediates (the hit
-        # mask lives in VMEM), so the dense-bytes budget doesn't apply
-        from votenet_tpu.ops.pallas.ballquery import query_ball_point_pallas
-
-        return query_ball_point_pallas(radius, nsample, xyz1, xyz2)
-    if common.bq_dense_bytes(B, M, N) > DENSE_BYTES_BUDGET:
+    if common.bq_dense_bytes(B, M, N) > common.dense_bytes_budget():
         return query_ball_point_streaming(radius, nsample, xyz1, xyz2)
     return query_ball_point_dense(radius, nsample, xyz1, xyz2)
 
 
-def _pallas_bq_route(N: int, M: int, nsample: int) -> bool:
-    """True iff the ball query should run as the Pallas VMEM kernel: Pallas
-    enabled on TPU, exact mode (the kernel computes the exact difference-form
-    hit test; "fast_bf16" keeps the XLA mm-expansion twin), and the kernel's
-    VMEM state fits these shapes."""
-    from votenet_tpu.ops.dispatch import bq_precision, use_pallas
-
-    if not use_pallas() or bq_precision() != "exact":
-        return False
-    from votenet_tpu.ops.pallas.ballquery import pallas_bq_supported
-
-    return pallas_bq_supported(N, M, nsample)
-
-
 def query_ball_point_dense(radius: float, nsample: int, xyz1: jnp.ndarray, xyz2: jnp.ndarray):
-    """Fixed-radius neighborhood query (hierarchical, TPU-fast).
-
-    Thin wrapper that reads ``ops.dispatch`` state per call (so flipping the
-    mode is never masked by a stale jit cache): on TPU in "exact" mode this
-    routes to the Pallas VMEM kernel (bit-identical, no (B, M, N) HBM
-    intermediates — ops/pallas/ballquery.py); otherwise the XLA twin
-    :func:`_query_ball_point_dense` with the mode as a static argument.
-    """
+    """The dense XLA twin. Reads ``ops.dispatch.bq_precision()`` per call
+    and passes it as a static argument of :func:`_query_ball_point_dense`,
+    so flipping the mode is never masked by a stale jit cache."""
     from votenet_tpu.ops.dispatch import bq_precision
 
-    if _pallas_bq_route(xyz1.shape[1], xyz2.shape[1], nsample):
-        from votenet_tpu.ops.pallas.ballquery import query_ball_point_pallas
-
-        return query_ball_point_pallas(radius, nsample, xyz1, xyz2)
     return _query_ball_point_dense(radius, nsample, bq_precision(), xyz1, xyz2)
 
 
@@ -144,13 +116,13 @@ def query_ball_point_dense(radius: float, nsample: int, xyz1: jnp.ndarray, xyz2:
 def _query_ball_point_dense(
     radius: float, nsample: int, mode: str, xyz1: jnp.ndarray, xyz2: jnp.ndarray
 ):
-    """Fixed-radius neighborhood query (hierarchical, TPU-fast).
+    """Fixed-radius neighborhood query (hierarchical, no sort).
 
     Args:
       radius: ball radius (static).
       nsample: max points per ball (static).
       mode: "exact" | "fast_bf16" distance precision (static; see module
-        docstring — "exact" is reference-identical on TPU).
+        docstring).
       xyz1: (B, N, 3) dataset points.
       xyz2: (B, M, 3) query points.
 
@@ -159,14 +131,14 @@ def _query_ball_point_dense(
       pts_cnt: (B, M) int32 number of hits (saturated at nsample).
 
     Algorithm: "first nsample set bits" extracted with a two-level search
-    instead of a top_k/sort over N. Split N into chunks of 128 lanes;
-    per-chunk hit counts + exclusive cumsum locate, for every output slot s,
-    the chunk containing the (s+1)-th hit; a gather of just those chunks'
+    instead of a top_k/sort over N. Split N into chunks of 128; per-chunk
+    hit counts + exclusive cumsum locate, for every output slot s, the
+    chunk containing the (s+1)-th hit; a gather of just those chunks'
     masks plus an in-chunk rank match yields the lane. O(M*N) for the mask +
-    O(M*nsample*128) for the search — no sort anywhere. Selection semantics
-    (index order, fill-with-first-hit, saturated counts) match the CUDA
-    scan (tf_grouping_g.cu:13-35) exactly; the radius test's precision
-    follows ``mode`` (module docstring).
+    O(M*nsample*128) for the search. Selection semantics (index order,
+    fill-with-first-hit, saturated counts) match the CUDA scan
+    (tf_grouping_g.cu:13-35) exactly; the radius test's precision follows
+    ``mode`` (module docstring).
     """
     xyz1 = xyz1.astype(jnp.float32)
     xyz2 = xyz2.astype(jnp.float32)
@@ -176,22 +148,15 @@ def _query_ball_point_dense(
     n_chunks = -(-N // C)
     Np = n_chunks * C
 
-    # All integer-valued intermediates are carried in bf16 so the heavy
-    # reductions run as MXU matmuls at full rate (every value here — hit
-    # flags, per-chunk counts <= 128, chunk ids <= 160, ranks <= 128 — is an
-    # integer <= 256, exactly representable in bf16); the earlier int/bool
-    # formulation hit pathological S8 layouts on TPU.
+    # Every integer-valued intermediate is carried in bf16 so the heavy
+    # reductions run as matmuls (each value here -- hit flags, per-chunk
+    # counts <= 128, ranks <= 128 -- is an integer <= 256, exact in bf16).
     bf16 = jnp.bfloat16
     if mode == "exact":
-        # the same difference-square form as the oracle — the hit mask is
-        # bit-identical BY CONSTRUCTION (HIGHEST-precision mm was measured
-        # near-exact but still flips slots through the few-ulp
-        # reassociation band at the larger radii; the difference form costs
-        # the same and removes the band entirely)
-        d2 = pairwise_sqdist(xyz2, xyz1)
+        d2 = pairwise_sqdist(xyz2, xyz1)  # the oracle's rounding sequence
     else:
         d2 = pairwise_sqdist_mm(xyz2, xyz1)  # (B, M, N)
-    hit = (d2 < jnp.float32(radius) ** 2).astype(bf16)
+    hit = (d2 < jnp.float32(radius_sq_threshold(radius))).astype(bf16)
     if Np != N:
         hit = jnp.pad(hit, ((0, 0), (0, 0), (0, Np - N)))
     hit_c = hit.reshape(B, M, n_chunks, C)
@@ -210,18 +175,15 @@ def _query_ball_point_dense(
     c_s = jnp.sum(cum[..., None, :] <= s_iota[:, None], axis=-1)  # (B, M, ns)
     c_s = jnp.minimum(c_s, n_chunks - 1).astype(jnp.int32)
 
-    # one-hot over chunks drives batched-matmul "gathers" on the MXU.
-    # Every (B, M, ns, C)-shaped extraction intermediate below is carried in
-    # bf16 — all values are small exact integers (hit flags 0/1, in-chunk
-    # ranks <= C=128, selected-chunk bases <= nsample-1 <= 63 because the
-    # chunk holding the (s+1)-th hit has exclusive-cumulative base <= s,
-    # lanes <= 127; bf16 is integer-exact through 256), and halving these
-    # ~0.5 GB/layer of HBM traffic measures +4% train / +2% inference
-    # end-to-end. Index outputs are bit-identical (oracle-equality tests).
+    # one-hot over chunks drives batched-matmul "gathers". Every
+    # (B, M, ns, C)-shaped extraction intermediate below is bf16-exact:
+    # hit flags 0/1, in-chunk ranks <= C=128, selected-chunk bases
+    # <= nsample-1 <= 63 (the chunk holding the (s+1)-th hit has exclusive
+    # cumulative base <= s), lanes <= 127.
     oh = jax.nn.one_hot(c_s, n_chunks, dtype=bf16)  # (B, M, ns, nc)
     sel_mask = jnp.einsum(
         "bmsc,bmck->bmsk", oh, hit_c, preferred_element_type=bf16
-    )  # (B, M, ns, C); MXU accumulates f32, cast exact (values 0/1)
+    )  # (B, M, ns, C); values 0/1
     base_s = jnp.einsum(
         "bmsc,bmc->bms", oh, base.astype(bf16), preferred_element_type=jnp.float32
     )  # base count of that chunk (selected bases <= 63: exact in bf16)
@@ -251,200 +213,20 @@ def _query_ball_point_dense(
     return lax.stop_gradient(idx), lax.stop_gradient(cnt)
 
 
-def _group_point_gather(points: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
-    """Flat row-gather from a (B*N, C) table — the embedding-lookup pattern
-    XLA TPU optimizes best (~1.7x faster than batched take_along_axis)."""
+def group_point(points: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
+    """Gather grouped features: (B, N, C), (B, M, S) -> (B, M, S, C).
+
+    A flat row gather from a (B*N, C) table. Differentiable w.r.t.
+    ``points``: the VJP is XLA's scatter-add, the reference's own atomic
+    design (tf_grouping_g.cu:61-78). On a GPU its accumulation order, and
+    so the last bits of the gradient, may vary from run to run.
+    """
     B, N, C = points.shape
     _, M, S = idx.shape
     table = points.reshape(B * N, C)
     off = (jnp.arange(B, dtype=jnp.int32) * N)[:, None, None]
     flat = (idx.astype(jnp.int32) + off).reshape(-1)
     return jnp.take(table, flat, axis=0).reshape(B, M, S, C)
-
-
-def scatter_add_mxu(
-    g: jnp.ndarray, idx: jnp.ndarray, num_rows: int, chunk: int = 2048
-) -> jnp.ndarray:
-    """Transpose of :func:`group_point`: Σ_{m,s} 1[idx==n]·g as MXU matmuls.
-
-    Scans over update chunks and contracts a float32 one-hot of the
-    destination indices against the update values on the MXU; summation
-    order is fixed by the scan — fully deterministic, unlike the
-    reference's atomicAdd (tf_grouping_g.cu:61-78). Product precision
-    follows ``ops.dispatch.scatter_precision()``:
-
-    - "exact" (default): the update operand runs at HIGHEST precision
-      (split into bf16 passes covering the full f32 mantissa; the one-hot
-      operand stays single-pass — 0/1 is bf16-exact), so every product is
-      the exact f32 update value and the result matches XLA's native
-      scatter-add up to summation order. Matches the reference's f32
-      atomicAdd products. Measured cost ~24.8 ms over the live SA backward
-      shapes at B=8 (same as XLA's native scatter).
-    - "fast_bf16": single-pass TPU einsum — update values are bf16-rounded
-      before the multiply (~1e-3 relative error on the gradient), 16.2 ms
-      over the same shapes (~13% faster full train step). The round-2
-      "MXU one-hot 2x over XLA scatter" result was this mode; the speedup
-      comes from the truncation, not the formulation
-      (benchmarks/scatter_bench.py).
-
-    Args:
-      g: (B, M, S, C) update values (cotangent of the gathered output).
-      idx: (B, M, S) int32 destination rows.
-      num_rows: N, the size of the destination axis.
-      chunk: updates per matmul (scan step).
-
-    Returns:
-      (B, N, C) float32 accumulated gradient.
-    """
-    from votenet_tpu.ops.dispatch import scatter_precision
-
-    # bf16 cotangents (gather_packing="bf16_hilo"): every update value is
-    # exactly representable in one bf16 MXU pass, so DEFAULT precision IS
-    # exact — HIGHEST would burn 3 passes recovering mantissa bits the
-    # payload never had.
-    upd_precision = (
-        lax.Precision.HIGHEST
-        if scatter_precision() == "exact" and g.dtype != jnp.bfloat16
-        else lax.Precision.DEFAULT
-    )
-    B, M, S, C = g.shape
-    K = M * S
-    chunk = min(chunk, K)
-    pad = (-K) % chunk
-    gf = g.reshape(B, K, C).astype(jnp.float32)
-    idxf = idx.reshape(B, K).astype(jnp.int32)
-    if pad:
-        gf = jnp.pad(gf, ((0, 0), (0, pad), (0, 0)))  # zero updates: no-op
-        idxf = jnp.pad(idxf, ((0, 0), (0, pad)))
-    n_chunks = (K + pad) // chunk
-
-    def body(acc, args):
-        ik, gk = args  # (B, chunk), (B, chunk, C)
-        oh = jax.nn.one_hot(ik, num_rows, dtype=jnp.float32)
-        return acc + jnp.einsum(
-            "bkn,bkc->bnc", oh, gk,
-            preferred_element_type=jnp.float32,
-            precision=(lax.Precision.DEFAULT, upd_precision),
-        ), None
-
-    acc0 = jnp.zeros((B, num_rows, C), jnp.float32)
-    ik = idxf.reshape(B, n_chunks, chunk).transpose(1, 0, 2)
-    gk = gf.reshape(B, n_chunks, chunk, C).transpose(1, 0, 2, 3)
-    acc, _ = lax.scan(body, acc0, (ik, gk))
-    return acc
-
-
-def _pallas_scatter_chunk(B: int, K: int, N: int, C: int, passes: int):
-    """Largest update-chunk for ops.pallas.scatter that fits scoped VMEM.
-
-    The kernel keeps the (N, Kt) one-hot, the (N, C) accumulator, the
-    double-buffered update block, the resident index array and the bf16
-    split terms in VMEM; Mosaic's scoped limit is 16 MB. The byte model
-    below reproduces the compiler's reported scoped sizes on the live
-    shapes (e.g. 30.78 MB for the N=20480 sa1 case, which correctly
-    falls back). Returns None when no chunk fits (→ scatter_add_mxu).
-    """
-    lanes = 128
-    n_pad = -(-N // lanes) * lanes
-    c_pad = -(-C // lanes) * lanes
-    for kt in (2048, 1024, 512, 256, 128):
-        k_pad = -(-max(K, 1) // kt) * kt
-        bytes_est = (
-            n_pad * kt * 2          # one-hot (bf16), built in VMEM
-            + n_pad * c_pad * 4     # accumulator block
-            + 2 * kt * c_pad * 4    # double-buffered update block
-            + B * k_pad * 4         # whole index array stays resident
-            + passes * kt * c_pad * 2  # bf16 split terms
-        )
-        if bytes_est <= 12 * 1024 * 1024:
-            return kt
-    return None
-
-
-def scatter_add(g: jnp.ndarray, idx: jnp.ndarray, num_rows: int) -> jnp.ndarray:
-    """group_point-VJP scatter: Pallas VMEM kernel when it fits, else the
-    scanned MXU einsum. Both honor ``ops.dispatch.scatter_precision()``
-    ("exact" = full-f32-mantissa products, "fast_bf16" = one bf16 pass);
-    both are deterministic. Measured (benchmarks/scatter_bench.py chunk
-    sweep, v5e, narrowed live shapes sa2n..prop at B=8): exact 13.9 → 12.8
-    ms, fast 11.7 → 7.7 ms — the Pallas kernel builds the one-hot in VMEM
-    instead of round-tripping it through HBM.
-    """
-    from votenet_tpu.ops.dispatch import scatter_precision, use_pallas
-
-    # one bf16 pass is exact for bf16 cotangents (see scatter_add_mxu)
-    exact_f32 = scatter_precision() == "exact" and g.dtype != jnp.bfloat16
-    passes = 3 if exact_f32 else 1
-    if use_pallas():
-        B = g.shape[0]
-        C = g.shape[-1]
-        K = math.prod(g.shape[1:-1])
-        kt = _pallas_scatter_chunk(B, K, num_rows, C, passes)
-        if kt is not None:
-            from votenet_tpu.ops.pallas.scatter import scatter_add_pallas
-
-            return scatter_add_pallas(g, idx, num_rows, passes=passes, chunk=kt)
-    return scatter_add_mxu(g, idx, num_rows)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(0, 1))
-def _group_point_tpu(
-    N: int, grad_skip: int, points: jnp.ndarray, idx: jnp.ndarray
-) -> jnp.ndarray:
-    return _group_point_gather(points, idx)
-
-
-def _group_point_tpu_fwd(N, grad_skip, points, idx):
-    return _group_point_gather(points, idx), idx
-
-
-def _group_point_tpu_bwd(N, grad_skip, idx, g):
-    # the cotangent dtype equals the primal dtype (gather preserves dtype)
-    if grad_skip:
-        # the caller asserted channels [:grad_skip] are stop_gradient'd —
-        # scatter only the live feature block (MXU-lane-aligned: the model's
-        # fused [xyz ‖ feat] widths 131/259 become 128/256, halving the
-        # one-hot matmul tiles at sa2; measured 19.4 -> 10.4 ms across
-        # sa2..sa4 at B=8) and zero-fill the dead coordinate columns
-        d_feat = scatter_add(g[..., grad_skip:], idx, N)
-        B = d_feat.shape[0]
-        d = jnp.concatenate(
-            [jnp.zeros((B, N, grad_skip), d_feat.dtype), d_feat], axis=-1
-        )
-    else:
-        d = scatter_add(g, idx, N)
-    return d.astype(g.dtype), None
-
-
-_group_point_tpu.defvjp(_group_point_tpu_fwd, _group_point_tpu_bwd)
-
-
-def group_point(
-    points: jnp.ndarray, idx: jnp.ndarray, grad_skip_prefix: int = 0
-) -> jnp.ndarray:
-    """Gather grouped features: (B, N, C), (B, M, S) -> (B, M, S, C).
-
-    Differentiable w.r.t. ``points``. On TPU the VJP is the MXU one-hot
-    segment-sum (:func:`scatter_add_mxu`); elsewhere — or with the dispatch
-    gate off (``use_pallas()`` False, the hand-optimized-twins escape
-    hatch) — it is XLA's native scatter-add. Both are deterministic,
-    replacing the reference's atomicAdd scatter (tf_grouping_g.cu:61-78).
-
-    ``grad_skip_prefix=k`` declares that the cotangent of channels [:k] is
-    discarded (returned as zeros): the caller must only pass k > 0 when
-    those channels are non-differentiable — e.g. coordinate columns wrapped
-    in ``stop_gradient`` (the SA layers' xyz derives from the param-free
-    input cloud). The payoff is a narrower backward scatter whose width is
-    MXU-lane-aligned (128/256 instead of 131/259). Only the TPU
-    (``use_pallas()``) path narrows; the XLA fallback differentiates the
-    plain gather, whose extra coordinate cotangent is dead by the same
-    assertion (XLA DCEs it), so parameter gradients agree across backends.
-    """
-    from votenet_tpu.ops.dispatch import use_pallas
-
-    if use_pallas():
-        return _group_point_tpu(points.shape[1], grad_skip_prefix, points, idx)
-    return _group_point_gather(points, idx)
 
 
 def query_ball_point_streaming(
@@ -477,7 +259,7 @@ def _query_ball_point_streaming(
 
     The "long-context" axis of this model is the point count (SURVEY §5): at
     N >> 20480 the dense hierarchical query's (B, M, N) intermediates exceed
-    HBM comfort. This variant scans dataset blocks of ``block`` points in
+    the device-memory budget. This variant scans dataset blocks of ``block`` points in
     ascending index order under a ``lax.scan`` — peak memory O(B·M·block) —
     and merges each block's first-k hits into the running per-query state.
     Because blocks are visited in index order and per-block hits come out in

@@ -1,6 +1,6 @@
 """Three-nearest-neighbor inverse-distance interpolation.
 
-TPU-native rebuild of the reference CPU package ``tf_ops/3d_interpolation``
+Rebuild of the reference CPU package ``tf_ops/3d_interpolation``
 (`tf_interpolate.py`, `tf_interpolate.cpp`). In the reference these ops are
 registered CPU-only, forcing a GPU->CPU->GPU round trip per FP module
 (SURVEY §3.1); here they stay on device — the largest single speed lever.
@@ -28,12 +28,6 @@ from jax import lax
 from votenet_tpu.ops import common
 from votenet_tpu.ops.common import pairwise_sqdist
 
-# HBM-footprint budget for the dense (B, N, M) distance matrix — the only
-# O(N) intermediate here. Byte-based dispatch shared with the ball query;
-# see ops/common.py.
-DENSE_BYTES_BUDGET = common.DENSE_BYTES_BUDGET
-
-
 def three_nn(xyz1: jnp.ndarray, xyz2: jnp.ndarray):
     """3 nearest neighbors of each xyz1 point among xyz2 points.
 
@@ -42,12 +36,13 @@ def three_nn(xyz1: jnp.ndarray, xyz2: jnp.ndarray):
     indices into M. Both stop-gradiented (see module docstring).
 
     Dispatches to :func:`three_nn_streaming` when the dense (B, N, M)
-    distance matrix exceeds ``DENSE_BYTES_BUDGET`` (identical results —
+    distance matrix exceeds :func:`~votenet_tpu.ops.common.dense_bytes_budget`
+    (the only O(N) intermediate here; identical results —
     query rows are independent).
     """
     B, N = xyz1.shape[0], xyz1.shape[1]
     M = xyz2.shape[1]
-    if common.three_nn_dense_bytes(B, N, M) > DENSE_BYTES_BUDGET:
+    if common.three_nn_dense_bytes(B, N, M) > common.dense_bytes_budget():
         return three_nn_streaming(xyz1, xyz2)
     return three_nn_dense(xyz1, xyz2)
 
@@ -56,8 +51,7 @@ def three_nn(xyz1: jnp.ndarray, xyz2: jnp.ndarray):
 def three_nn_dense(xyz1: jnp.ndarray, xyz2: jnp.ndarray):
     """Dense three_nn over the full (B, N, M) distance matrix.
 
-    Three masked argmin passes instead of ``lax.top_k`` (which lowers to a
-    full sort on TPU — the sort was ~5ms at fp2 size vs ~1ms for the passes).
+    Three masked argmin passes instead of ``lax.top_k``, which sorts.
     argmin's lowest-index tie rule reproduces the reference scan's strict-<
     update (tf_interpolate.cpp:73-90): equal-distance neighbors come out in
     index order.

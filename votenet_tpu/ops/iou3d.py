@@ -1,4 +1,4 @@
-"""Exact oriented 3D box IoU, vectorized for TPU.
+"""Exact oriented 3D box IoU, vectorized for XLA.
 
 Rebuilds the convex polygon-clip IoU used in two places in the reference:
 the C++ NMS kernel (tf_ops/3d_nms/tf_nms3d.cpp:43-192: point-in-polygon +
@@ -90,8 +90,8 @@ def convex_quad_intersection_area(P: jnp.ndarray, Q: jnp.ndarray) -> jnp.ndarray
     Candidate-vertex method with *rank-based* angular ordering: the (at most
     24) candidate vertices — P corners inside Q, Q corners inside P, and the
     16 edge-pair intersections — are ordered around their centroid not by a
-    sort (XLA sort over 24-vertex rows measured ~170 ms for an (8,256,256)
-    NMS matrix on v5e) but by computing each candidate's angular *rank* via
+    sort (an XLA sort over 24-vertex rows of an (8,256,256) NMS matrix is
+    slow) but by computing each candidate's angular *rank* via
     a 24x24 pairwise comparison, and then evaluating the cyclic shoelace as
     a pairwise rank-adjacency sum:
 
@@ -170,7 +170,7 @@ def convex_quad_intersection_area_edgeclip(P: jnp.ndarray, Q: jnp.ndarray) -> jn
     # (fold sigma into the half-plane constraint) and its boundary traversal
     # runs backwards (multiply its shoelace contribution by sigma — equal to
     # traversing each clipped segment reversed). Reversal-free on purpose:
-    # a [..., ::-1, :] here crashed the XLA TPU fusion emitter
+    # a [..., ::-1, :] here crashed an XLA fusion emitter
     # (ReverseInput::TransformWindow check failure) at NMS-matrix shapes.
     sp = jnp.sign(quad_signed_area(P))  # (...,) +-1 (0 only if degenerate)
     sq = jnp.sign(quad_signed_area(Q))
@@ -224,7 +224,7 @@ def convex_quad_intersection_area_sh(P: jnp.ndarray, Q: jnp.ndarray) -> jnp.ndar
     """Sutherland–Hodgman formulation: clip P by Q's four half-planes with a
     fixed-capacity vertex buffer and one-hot compaction. A third independent
     implementation kept for cross-validation (its per-stage gathers and
-    scatters lower poorly on TPU — slower than the rank method above).
+    scatters make it slower than the rank method above).
     """
     P, Q = jnp.broadcast_arrays(P, Q)
     P = P.astype(jnp.float32)
@@ -293,8 +293,8 @@ def convex_quad_intersection_area_sh(P: jnp.ndarray, Q: jnp.ndarray) -> jnp.ndar
 def convex_quad_intersection_area_sort(P: jnp.ndarray, Q: jnp.ndarray) -> jnp.ndarray:
     """Angular-sort formulation (candidate vertices + atan2 sort + shoelace),
     mirroring the reference's C++ approach (tf_nms3d.cpp:122-175). Kept as a
-    second independent implementation for cross-validation; slower on TPU
-    than the Sutherland–Hodgman version above.
+    second independent implementation for cross-validation; its sort makes
+    it the slowest of the three.
     """
     P, Q = jnp.broadcast_arrays(P, Q)
     p_in_q = _points_in_quad(P, Q)  # (..., 4)

@@ -1,8 +1,9 @@
-"""Oriented 3D non-max suppression as a fixed-shape TPU op.
+"""Oriented 3D non-max suppression as a fixed-shape device op.
 
 Rebuilds the reference's CPU-only ``NonMaxSuppression3D``
 (tf_ops/3d_nms/tf_nms3d.cpp:202-308) with the variable-length output
-(SURVEY §3.2 calls this out as the key TPU forcing function) replaced by a
+(SURVEY §3.2 calls this out as the key static-shape forcing function)
+replaced by a
 fixed-size keep mask.
 
 Reference semantics matched:

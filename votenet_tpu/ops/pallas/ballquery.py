@@ -1,34 +1,22 @@
-"""Exact ball query as a single Pallas TPU kernel (VMEM-resident hit mask).
+"""Exact ball query as one Pallas-Triton kernel for NVIDIA GPUs.
 
-The XLA hierarchical query (:func:`votenet_tpu.ops.grouping.
-_query_ball_point_dense`) is algorithmically right for TPU — no sort, MXU
-extraction — but its (B, M, N)-shaped intermediates (f32 distances, bf16
-hit mask, the one-hot / selected-mask / rank tensors) all round-trip HBM:
-~10.7 ms marginal cost of a 29 ms B=8 inference forward (DESIGN.md ablation
-table), on a model already AT the HBM-bandwidth roofline. This kernel runs
-the SAME algorithm per (batch row, query tile) with every intermediate
-resident in VMEM; HBM sees only the point/query coordinates in and the
-(B, M, nsample) indices + counts out.
+The shape of the reference CUDA kernel (tf_grouping_g.cu:13-35): each
+query scans the dataset points in index order, takes the first ``nsample``
+hits and stops. Here a program owns a tile of ``_TILE_Q`` queries of one
+batch row and walks the points in chunks of ``_TILE_P``:
 
-Same selection semantics as the reference CUDA scan (tf_grouping_g.cu:13-35)
-via the same math as the XLA twin:
+- the hit test is the oracle's, on unfused f32 squared distances
+  (``fps.sqdist3``) against :func:`~votenet_tpu.ops.common.radius_sq_threshold`;
+- an in-chunk prefix count gives every hit its rank among the query's hits,
+  and hits ranked below ``nsample`` are stored straight into their slot;
+- the scan stops once every query of the tile holds ``nsample`` hits.
 
-- hit test: strict ``d2 < radius**2`` on difference-form f32 squared
-  distances — the "exact" bq_precision mode; the hit mask is bit-identical
-  to :func:`~votenet_tpu.ops.common.pairwise_sqdist` by construction
-  (exact-equality tested on TPU at the live model shapes);
-- first ``nsample`` hits in dataset index order, extracted hierarchically:
-  per-128-lane-chunk counts -> cumulative counts (triangular matmul) ->
-  per-slot chunk location (compare-and-sum) -> chunk-mask gather (batched
-  one-hot matmul, MXU) -> in-chunk rank match (triangular matmul);
-- every extraction quantity is a small exact integer (counts <= 128 ride
-  bf16 operands with f32 MXU accumulation, exactly like the XLA twin), so
-  indices/counts are deterministic and exactly equal to the twin's.
-
-The reference-semantics finalization (fill-with-first-hit, empty ball -> 0,
-count saturation) runs OUTSIDE the kernel on the small (B, M, nsample)
-output — shared verbatim with the streaming twin via
-:func:`~votenet_tpu.ops.grouping.finalize_first_k`.
+Nothing (B, M, N)-shaped is ever written: the twin
+(:func:`votenet_tpu.ops.grouping.query_ball_point_dense`) materialises
+distances and hit masks of that shape. The reference's fill rule (slots past
+the last hit repeat the first hit; an empty ball gives index 0) runs after
+the kernel on the small (B, M, nsample) output, shared with the streaming
+twin via :func:`~votenet_tpu.ops.grouping.finalize_first_k`.
 """
 
 from __future__ import annotations
@@ -39,215 +27,108 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-_LANES = 128
+from votenet_tpu.ops.common import radius_sq_threshold
+from votenet_tpu.ops.pallas.fps import sqdist3
 
-# VMEM budget for choosing the query-tile size Mt (bytes; Mosaic's usable
-# scoped VMEM is ~16 MB — stay under to leave double-buffering headroom).
-_VMEM_BUDGET = 10 * 1024 * 1024
-
-
-def _kernel_bytes(Mt: int, nc: int, S: int, ch: int) -> int:
-    """Liveness-based peak-VMEM model of the kernel (see kernel body): the
-    hit-mask scratch and coordinate planes are resident throughout; of the
-    three compute stages (d2 pass, per-slot chunk location, chunk-mask
-    gather + rank match) only one's temporaries are live at a time."""
-    resident = Mt * nc * _LANES * 2 + nc * _LANES * 4 * 3
-    d2_stage = Mt * ch * _LANES * 4 * 4
-    locate_stage = Mt * S * nc * 4 + Mt * S * nc * 2  # mk f32 + oh bf16
-    gather_stage = Mt * S * _LANES * 4 * 3  # sel / rank / is_target
-    return resident + max(d2_stage, locate_stage, gather_stage)
-
-
-def pick_tile(M: int, nc: int, S: int, ch: int) -> int:
-    """Largest query tile (multiple of 8, <=256) fitting the VMEM budget."""
-    mt = 256
-    while mt > 8 and _kernel_bytes(mt, nc, S, ch) > _VMEM_BUDGET:
-        mt //= 2
-    return max(8, min(mt, -(-M // 8) * 8))
+_TILE_Q = 32   # queries per program
+_TILE_P = 128  # points per chunk
+_FAR = 1e9     # coordinate of padding points: outside every ball
 
 
 def _bq_kernel(
-    radius2: float,
-    nsample: int,
-    n_chunk_steps: int,
-    ch: int,
-    x_ref, y_ref, z_ref,      # (1, nc, 128) f32 point coordinate planes
-    qx_ref, qy_ref, qz_ref,   # (1, Mt, 1, 1) f32 query coordinate planes
-    tri_nc_ref,               # (nc, nc) bf16 upper-tri ones (inclusive cumsum)
-    tri_c_ref,                # (128, 128) bf16 upper-tri ones
-    idx_ref,                  # (1, Mt, S) int32 out
-    cnt_ref,                  # (1, Mt, 1) int32 out
-    hit_ref,                  # (Mt, nc, 128) bf16 scratch
+    r2: float, nsample: int, m_valid: int, nchunks: int, interpret: bool,
+    x_ref, y_ref, z_ref,     # (Np,) point planes of one batch row
+    qx_ref, qy_ref, qz_ref,  # (_TILE_Q,) query planes of this tile
+    idx_ref,                 # (Mp, nsample + 1) int32; the last column is a
+                             # sink for lanes that store nothing
+    cnt_ref,                 # (_TILE_Q,) int32
 ):
-    Mt = qx_ref.shape[1]
-    nc = x_ref.shape[1]
-    S = idx_ref.shape[2]
-    qx = qx_ref[0]  # (Mt, 1, 1)
-    qy = qy_ref[0]
-    qz = qz_ref[0]
-    r2 = jnp.float32(radius2)
+    tq, tp = _TILE_Q, _TILE_P
+    q0 = pl.program_id(1) * tq
+    rows = q0 + lax.broadcasted_iota(jnp.int32, (tq, tp), 0)
+    lane = lax.broadcasted_iota(jnp.int32, (tq, tp), 1)
+    # padded queries count as full, so they never hold up the early exit
+    pad_q = q0 + lax.broadcasted_iota(jnp.int32, (tq,), 0) >= m_valid
+    qx, qy, qz = qx_ref[...][:, None], qy_ref[...][:, None], qz_ref[...][:, None]
 
-    def d2_pass(c, _):
-        sl = pl.ds(c * ch, ch)
-        # (Mt,1,1) - (1,ch,128) -> (Mt,ch,128); same difference-square-sum
-        # rounding sequence as ops.common.pairwise_sqdist (bit-parity)
-        dx = qx - x_ref[:, sl, :]
-        dy = qy - y_ref[:, sl, :]
-        dz = qz - z_ref[:, sl, :]
-        d2 = dx * dx + dy * dy + dz * dz
-        # select in f32 THEN cast: an i1->bf16 select needs a (8,128)->
-        # (16,128) mask relayout Mosaic rejects
-        hit_ref[:, sl, :] = jnp.where(d2 < r2, 1.0, 0.0).astype(jnp.bfloat16)
-        return 0
+    def not_done(carry):
+        c, cnt = carry
+        return (c < nchunks) & (jnp.min(jnp.where(pad_q, nsample, cnt)) < nsample)
 
-    lax.fori_loop(0, n_chunk_steps, d2_pass, 0)
+    def scan_chunk(carry):
+        c, cnt = carry
+        start = pl.multiple_of(c * tp, tp)
+        sl = pl.ds(start, tp)
+        d2 = sqdist3(
+            qx - x_ref[sl][None, :], qy - y_ref[sl][None, :],
+            qz - z_ref[sl][None, :], interpret,
+        )
+        hit = d2 < jnp.float32(r2)
+        h = hit.astype(jnp.int32)
+        rank = cnt[:, None] + jnp.cumsum(h, axis=1) - 1
+        keep = hit & (rank < nsample)
+        plgpu.store(
+            idx_ref.at[rows, jnp.where(keep, rank, nsample)],
+            start + lane,
+            mask=keep,
+        )
+        return c + 1, cnt + jnp.sum(h, axis=1)
 
-    hit3 = hit_ref[:]  # (Mt, nc, 128) bf16
-    # per-chunk hit counts (<=128: bf16-exact) and their inclusive cumsum
-    # (values up to N: f32 MXU accumulation, same as the XLA twin's einsum)
-    counts = jnp.sum(hit3, axis=2)  # (Mt, nc) bf16, exact
-    cum = lax.dot_general(
-        counts, tri_nc_ref[:],
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )  # (Mt, nc) f32 inclusive cumsum over chunks
-    total = jnp.sum(counts.astype(jnp.float32), axis=1, keepdims=True)  # (Mt,1)
-
-    # chunk containing the (s+1)-th hit: #chunks with cum <= s; the base
-    # count of that chunk = max cum value <= s (cum is non-decreasing)
-    s_iota = lax.broadcasted_iota(jnp.int32, (1, S, 1), 1).astype(jnp.float32)
-    cum3 = cum[:, None, :]  # (Mt, 1, nc)
-    mk = jnp.where(cum3 <= s_iota, 1.0, 0.0)  # (Mt, S, nc) f32
-    c_s = jnp.minimum(jnp.sum(mk, axis=2), nc - 1)  # (Mt, S) f32, exact int
-    base_s = jnp.max(mk * cum3, axis=2)  # (Mt, S) f32, exact int
-
-    # gather the chosen chunks' masks: batched one-hot matmul on the MXU
-    c_iota = lax.broadcasted_iota(jnp.int32, (Mt, S, nc), 2).astype(jnp.float32)
-    oh = jnp.where(c_iota == c_s[:, :, None], 1.0, 0.0).astype(
-        jnp.bfloat16
-    )  # (Mt, S, nc)
-    sel = lax.dot_general(
-        oh, hit3,
-        dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32,
-    )  # (Mt, S, 128) f32, values 0/1
-    sel_b = sel.astype(jnp.bfloat16)
-
-    # in-chunk inclusive rank via triangular matmul; the wanted rank is
-    # (s+1) - base_s; its lane is read off a one-hot dot with the lane iota
-    lr = lax.dot_general(
-        sel_b, tri_c_ref[:],
-        dimension_numbers=(((2,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )  # (Mt, S, 128) f32, ranks <= 128
-    t_s = s_iota + 1.0 - base_s[:, :, None]  # (Mt, S, 1)
-    lane_iota = lax.broadcasted_iota(jnp.int32, (Mt, S, _LANES), 2).astype(
-        jnp.float32
+    _, cnt = lax.while_loop(
+        not_done, scan_chunk, (jnp.int32(0), jnp.zeros((tq,), jnp.int32))
     )
-    is_t = jnp.where((lr == t_s) & (sel > 0.5), lane_iota, 0.0)
-    lane = jnp.sum(is_t, axis=2)  # (Mt, S) f32, exact (one-hot rows)
-
-    idx_ref[0] = (c_s * _LANES + lane).astype(jnp.int32)
-    cnt_ref[0] = jnp.minimum(total, jnp.float32(nsample)).astype(jnp.int32)
+    cnt_ref[...] = jnp.minimum(cnt, nsample)
 
 
 @functools.partial(jax.jit, static_argnums=(0, 1, 4))
-def query_ball_point_pallas(
+def query_ball_point_gpu(
     radius: float,
     nsample: int,
     xyz1: jnp.ndarray,
     xyz2: jnp.ndarray,
     interpret: bool = False,
 ):
-    """Pallas exact ball query: (B,N,3), (B,M,3) -> idx (B,M,nsample) int32,
-    cnt (B,M) int32. Bit-identical to the XLA exact twin
-    (:func:`~votenet_tpu.ops.grouping.query_ball_point_dense` in "exact"
-    mode) — verified compiled-on-TPU at the live model shapes."""
+    """Pallas-Triton ball query: (B,N,3) points, (B,M,3) queries ->
+    idx (B,M,nsample) int32, cnt (B,M) int32; bit-identical to the numpy
+    oracle and the XLA twins. ``interpret=True`` runs on the CPU (tests)."""
     from votenet_tpu.ops.grouping import finalize_first_k
 
-    # index selection is non-differentiable (the reference registers no
-    # gradient, tf_grouping.py:21); kill tangents BEFORE the pallas_call —
-    # its jvp rule would otherwise try to differentiate the kernel when the
-    # query cloud carries gradient (the proposal layer queries votes)
+    # index selection has no gradient (tf_grouping.py:21): cut tangents
+    # before the pallas_call, which has no JVP rule
     xyz1 = lax.stop_gradient(xyz1.astype(jnp.float32))
     xyz2 = lax.stop_gradient(xyz2.astype(jnp.float32))
     B, N, _ = xyz1.shape
     M = xyz2.shape[1]
-    S = nsample
-
-    nc0 = -(-N // _LANES)
-    ch = 16 if nc0 >= 16 else nc0
-    nc = -(-nc0 // ch) * ch
-    Np = nc * _LANES
-    Mt = pick_tile(M, nc, S, ch)
-    Mp = -(-M // Mt) * Mt
-
-    # pad points far away (guaranteed miss for any model radius); pad
-    # queries with zeros (their rows are sliced off below)
-    planes = jnp.transpose(xyz1, (2, 0, 1))  # (3, B, N)
-    planes = jnp.pad(planes, ((0, 0), (0, 0), (0, Np - N)), constant_values=1e9)
-    planes = planes.reshape(3, B, nc, _LANES)
-    qplanes = jnp.transpose(xyz2, (2, 0, 1))  # (3, B, M)
-    qplanes = jnp.pad(qplanes, ((0, 0), (0, 0), (0, Mp - M)))
-    qplanes = qplanes.reshape(3, B, Mp, 1, 1)
-
-    iota = lax.broadcasted_iota(jnp.int32, (nc, nc), 0)
-    jota = lax.broadcasted_iota(jnp.int32, (nc, nc), 1)
-    tri_nc = jnp.where(iota <= jota, 1, 0).astype(jnp.bfloat16)
-    iota_c = lax.broadcasted_iota(jnp.int32, (_LANES, _LANES), 0)
-    jota_c = lax.broadcasted_iota(jnp.int32, (_LANES, _LANES), 1)
-    tri_c = jnp.where(iota_c <= jota_c, 1, 0).astype(jnp.bfloat16)
-
-    pspec = pl.BlockSpec(
-        (1, nc, _LANES), lambda b, i: (b, 0, 0), memory_space=pltpu.VMEM
+    nchunks = -(-N // _TILE_P)
+    Np = nchunks * _TILE_P
+    Mp = -(-M // _TILE_Q) * _TILE_Q
+    planes = jnp.pad(
+        jnp.transpose(xyz1, (2, 0, 1)), ((0, 0), (0, 0), (0, Np - N)),
+        constant_values=_FAR,
     )
-    qspec = pl.BlockSpec(
-        (1, Mt, 1, 1), lambda b, i: (b, i, 0, 0), memory_space=pltpu.VMEM
-    )
-    tspec_nc = pl.BlockSpec(
-        (nc, nc), lambda b, i: (0, 0), memory_space=pltpu.VMEM
-    )
-    tspec_c = pl.BlockSpec(
-        (_LANES, _LANES), lambda b, i: (0, 0), memory_space=pltpu.VMEM
-    )
-
+    qplanes = jnp.pad(jnp.transpose(xyz2, (2, 0, 1)), ((0, 0), (0, 0), (0, Mp - M)))
+    pspec = pl.BlockSpec((None, Np), lambda b, i: (b, 0))
+    qspec = pl.BlockSpec((None, _TILE_Q), lambda b, i: (b, i))
     idx, cnt = pl.pallas_call(
-        functools.partial(_bq_kernel, float(radius) ** 2, S, nc // ch, ch),
-        grid=(B, Mp // Mt),
-        in_specs=[pspec, pspec, pspec, qspec, qspec, qspec, tspec_nc, tspec_c],
+        functools.partial(
+            _bq_kernel, radius_sq_threshold(radius), nsample, M, nchunks, interpret
+        ),
+        grid=(B, Mp // _TILE_Q),
+        in_specs=[pspec] * 3 + [qspec] * 3,
         out_specs=(
-            pl.BlockSpec(
-                (1, Mt, S), lambda b, i: (b, i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, Mt, 1), lambda b, i: (b, i, 0), memory_space=pltpu.VMEM
-            ),
+            pl.BlockSpec((None, Mp, nsample + 1), lambda b, i: (b, 0, 0)),
+            qspec,
         ),
         out_shape=(
-            jax.ShapeDtypeStruct((B, Mp, S), jnp.int32),
-            jax.ShapeDtypeStruct((B, Mp, 1), jnp.int32),
+            jax.ShapeDtypeStruct((B, Mp, nsample + 1), jnp.int32),
+            jax.ShapeDtypeStruct((B, Mp), jnp.int32),
         ),
-        scratch_shapes=[pltpu.VMEM((Mt, nc, _LANES), jnp.bfloat16)],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=1),
         interpret=interpret,
-    )(
-        planes[0], planes[1], planes[2],
-        qplanes[0], qplanes[1], qplanes[2],
-        tri_nc, tri_c,
-    )
-    idx = idx[:, :M, :]
-    cnt = cnt[:, :M, 0]
-    idx, cnt = finalize_first_k(idx, cnt, S)
+        name="ball_query",
+    )(planes[0], planes[1], planes[2], qplanes[0], qplanes[1], qplanes[2])
+    idx, cnt = finalize_first_k(idx[:, :M, :nsample], cnt[:, :M], nsample)
     return lax.stop_gradient(idx), lax.stop_gradient(cnt)
-
-
-def pallas_bq_supported(N: int, M: int, nsample: int) -> bool:
-    """True iff the kernel's VMEM state fits at some tile size for these
-    shapes (the dispatcher falls back to the XLA twin / streaming path
-    otherwise — e.g. very large N, where the resident hit mask alone
-    exceeds the budget even at the minimum tile)."""
-    nc0 = -(-N // _LANES)
-    ch = 16 if nc0 >= 16 else nc0
-    nc = -(-nc0 // ch) * ch
-    return _kernel_bytes(8, nc, nsample, ch) <= _VMEM_BUDGET

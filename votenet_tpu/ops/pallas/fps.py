@@ -1,16 +1,22 @@
-"""Farthest-point sampling as a single Pallas TPU kernel.
+"""Farthest-point sampling as one Pallas-Triton kernel for NVIDIA GPUs.
 
-The XLA fori_loop version (:func:`votenet_tpu.ops.sampling.farthest_point_sample`)
-pays per-iteration fixed costs (HBM round trips + fusion dispatch) for each
-of the npoint sequential steps — ~60us/step measured on v5e. This kernel
-runs the ENTIRE selection loop inside one kernel with the coordinate planes
-and the running min-distance cache resident in VMEM, the same state layout
-the reference CUDA kernel keeps in shared memory (tf_sampling_g.cu:105-170),
-but vectorized across the batch: batches ride the 8 sublanes, points ride
-the lanes, so one loop step updates all batch rows at once.
+The XLA twin (:func:`votenet_tpu.ops.sampling.farthest_point_sample_xla`)
+runs each of the ``npoint - 1`` serial selection steps as several small
+device kernels (gather, distance+min, argmax, update), so it is bound by
+launch latency. This kernel keeps the whole selection loop inside one
+launch, as the reference CUDA kernel does (tf_sampling_g.cu:105-170): one
+program per batch row, the per-point running min-distance kept on the
+device (a scratch row that stays in L1/L2) and a block-wide max-reduce per
+step.
 
-Semantics identical to the XLA twin: seed = index 0, running min of squared
-distances, argmax with lowest-index tie-breaking.
+Each step streams the row in chunks of ``chunk`` points. Per lane it keeps
+the largest min-distance seen and its lowest chunk (strict ``>``), then one
+max and one min reduce pick the largest distance with the lowest index:
+the reference's strictly-greater scan and ``jnp.argmax``'s tie-break.
+
+The squared distance is rounded exactly as the numpy oracle rounds it,
+``((dx*dx) + (dy*dy)) + (dz*dz)``: on the GPU the products are
+``mul.rn.f32`` (inline PTX), which the compiler never contracts into an FMA.
 """
 
 from __future__ import annotations
@@ -21,190 +27,129 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-_SUBLANES = 8
-_LANES = 128
-
-# Largest batch routed to the row-wise kernel by the dispatcher (sampling.py).
-# Below this the batched kernel idles sublanes. Measured crossover on v5e
-# (benchmarks/fps_crossover.py, 20480->2048): B=1 4.44/2.68 ms, B=2
-# 4.50/3.66, B=4 5.01/5.85 (batched/rowwise) -> rowwise wins through B=2.
-ROWWISE_MAX_B = 2
-
-# VMEM cap of the row-wise kernel: per program it holds one row's x/y/z
-# input planes (double-buffered across the B-grid) plus the min-dist and
-# index scratch planes, all (N/128, 128) f32/i32 — ~(3*2 + 2) * 4 = 36
-# bytes/point against Mosaic's ~12 MB usable scope. The batched kernel's
-# cap is 8x tighter (it holds 8 sublane rows per plane — see
-# ops/common.py LARGE_N_THRESHOLD), so above that the dispatcher uses this
-# kernel at ANY batch (grid over B): still vastly faster than the XLA
-# fori_loop fallback. Verified compiled at N=262144 on v5e
-# (benchmarks/tpu_kernel_checks.py).
-ROWWISE_MAX_N = 262144
+_MAX_CHUNK = 4096  # points per streamed chunk (a power of two, Triton's rule)
+_UNROLL_CHUNKS = 16  # rows of up to 16 chunks unroll the chunk loop
 
 
-def _fps_kernel(npoint: int, n_valid: int, x_ref, y_ref, z_ref, o_ref, mind_ref):
-    Bb, Np = x_ref.shape
-    lane = lax.broadcasted_iota(jnp.int32, (Bb, Np), 1)
-    out_lane = lax.broadcasted_iota(jnp.int32, (Bb, o_ref.shape[1]), 1)
-    # padded lanes get a permanently negative cache entry so they can never
-    # win the argmax (real lanes always have mindist >= 0)
-    mind_ref[:] = jnp.where(lane < n_valid, jnp.float32(1e38), jnp.float32(-1.0))
-    o_ref[:] = jnp.zeros_like(o_ref)  # slot 0 = seed index 0
+def mul_rn(a: jnp.ndarray, b: jnp.ndarray, interpret: bool) -> jnp.ndarray:
+    """IEEE round-to-nearest product that the GPU compiler cannot fuse into
+    an FMA with a following add (interpret mode: the plain product)."""
+    if interpret:
+        return a * b
+    (p,) = plgpu.elementwise_inline_asm(
+        "mul.rn.f32 $0, $1, $2;",
+        args=[a, b],
+        constraints="=f,f,f",
+        pack=1,
+        result_shape_dtypes=[jax.ShapeDtypeStruct(a.shape, jnp.float32)],
+    )
+    return p
 
-    def body(j, old):
-        sel = lane == old  # (Bb, Np): one-hot of the last pick per row
-        x1 = jnp.sum(jnp.where(sel, x_ref[:], 0.0), axis=1, keepdims=True)
-        y1 = jnp.sum(jnp.where(sel, y_ref[:], 0.0), axis=1, keepdims=True)
-        z1 = jnp.sum(jnp.where(sel, z_ref[:], 0.0), axis=1, keepdims=True)
-        dx = x_ref[:] - x1
-        dy = y_ref[:] - y1
-        dz = z_ref[:] - z1
-        d = dx * dx + dy * dy + dz * dz
-        md = jnp.minimum(mind_ref[:], d)
-        mind_ref[:] = md
-        best = jnp.max(md, axis=1, keepdims=True)
-        cand = jnp.where(md == best, lane, Np)  # first-index tie-break
-        nxt = jnp.min(cand, axis=1, keepdims=True).astype(jnp.int32)
-        # dynamic single-lane stores need 128-alignment on TPU; a masked
-        # full-row write of the (small) output block is cheap instead
-        o_ref[:] = jnp.where(out_lane == j, nxt, o_ref[:])
+
+def sqdist3(dx, dy, dz, interpret: bool):
+    """``((dx*dx) + (dy*dy)) + (dz*dz)`` with unfused products."""
+    return (
+        mul_rn(dx, dx, interpret) + mul_rn(dy, dy, interpret)
+    ) + mul_rn(dz, dz, interpret)
+
+
+def chunk_loop(nchunks: int, body, carry):
+    """Run ``body(c, carry)`` over chunks ``c`` in order: unrolled (static
+    offsets) for short rows, a device loop for long ones."""
+    if nchunks <= _UNROLL_CHUNKS:
+        for c in range(nchunks):
+            carry = body(c, carry)
+        return carry
+    return lax.fori_loop(0, nchunks, body, carry)
+
+
+def fps_chunk(n: int) -> int:
+    """Chunk width for an ``n``-point row: the next power of two, capped."""
+    return min(_MAX_CHUNK, pl.next_power_of_2(max(n, 16)))
+
+
+def _fps_kernel(
+    npoint: int, n_valid: int, chunk: int, nchunks: int, interpret: bool,
+    x_ref, y_ref, z_ref,  # (Np,) coordinate planes of one batch row
+    o_ref,                # (npoint,) int32 selected indices
+    mind_ref,             # (Np,) f32 running min-distance (scratch output)
+):
+    lane = lax.broadcasted_iota(jnp.int32, (chunk,), 0)
+
+    def start(c):
+        return c * chunk if isinstance(c, int) else pl.multiple_of(c * chunk, chunk)
+
+    def init(c, carry):
+        # padding can never win: real points always have mindist >= 0
+        valid = start(c) + lane < n_valid
+        mind_ref[pl.ds(start(c), chunk)] = jnp.where(
+            valid, jnp.float32(1e38), jnp.float32(-1.0)
+        )
+        return carry
+
+    chunk_loop(nchunks, init, 0)
+    o_ref[0] = jnp.int32(0)  # the reference seeds FPS at index 0
+
+    def step(j, last):
+        x1, y1, z1 = x_ref[last], y_ref[last], z_ref[last]
+
+        def scan_chunk(c, carry):
+            bestv, besti = carry
+            sl = pl.ds(start(c), chunk)
+            d = sqdist3(x_ref[sl] - x1, y_ref[sl] - y1, z_ref[sl] - z1, interpret)
+            md = jnp.minimum(mind_ref[sl], d)
+            mind_ref[sl] = md
+            better = md > bestv  # strict: an earlier chunk keeps a tie
+            return (
+                jnp.where(better, md, bestv),
+                jnp.where(better, start(c) + lane, besti),
+            )
+
+        bestv, besti = chunk_loop(
+            nchunks,
+            scan_chunk,
+            (jnp.full((chunk,), -2.0, jnp.float32), jnp.zeros((chunk,), jnp.int32)),
+        )
+        best = jnp.max(bestv)
+        nxt = jnp.min(jnp.where(bestv == best, besti, jnp.int32(2**31 - 1)))
+        o_ref[j] = nxt
         return nxt
 
-    if npoint > 1:
-        lax.fori_loop(1, npoint, body, jnp.zeros((Bb, 1), jnp.int32))
-
-
-def _fps_rowwise_kernel(
-    npoint: int, n_valid: int, x_ref, y_ref, z_ref, o_ref, mind_ref, fidx_ref, sel_ref
-):
-    """One batch row per grid program; points folded over (sublanes, lanes).
-
-    The fold keeps all 8 sublanes busy at any batch size (the batched kernel
-    above idles 7/8 of the VPU at B=1) and makes every reduction scalar-
-    valued, so the selected index can round-trip through SMEM and the next
-    center's coordinates come from one dynamic-sublane load + a (1, L)
-    select instead of three masked full-row sums.
-    """
-    S, L = mind_ref.shape
-    sub = lax.broadcasted_iota(jnp.int32, (S, L), 0)
-    lanes = lax.broadcasted_iota(jnp.int32, (S, L), 1)
-    fidx_ref[:] = sub * L + lanes  # flat point index, cached across steps
-    # padded slots can never win the argmax (real slots have mindist >= 0)
-    mind_ref[:] = jnp.where(fidx_ref[:] < n_valid, jnp.float32(1e38), jnp.float32(-1.0))
-    o_ref[:] = jnp.zeros_like(o_ref)  # slot 0 = seed index 0
-    sel_ref[0, 0] = jnp.int32(0)
-
-    So, Lo = o_ref.shape[1], o_ref.shape[2]
-    out_flat = (
-        lax.broadcasted_iota(jnp.int32, (1, So, Lo), 1) * Lo
-        + lax.broadcasted_iota(jnp.int32, (1, So, Lo), 2)
-    )
-    lane1 = lax.broadcasted_iota(jnp.int32, (1, L), 1)
-    sentinel = jnp.int32(S * L)
-
-    def body(j, _):
-        last = sel_ref[0, 0]
-        r, c = last // L, last % L
-        csel = lane1 == c
-        x1 = jnp.sum(jnp.where(csel, x_ref[0, pl.ds(r, 1), :], 0.0))
-        y1 = jnp.sum(jnp.where(csel, y_ref[0, pl.ds(r, 1), :], 0.0))
-        z1 = jnp.sum(jnp.where(csel, z_ref[0, pl.ds(r, 1), :], 0.0))
-        dx = x_ref[0] - x1
-        dy = y_ref[0] - y1
-        dz = z_ref[0] - z1
-        d = dx * dx + dy * dy + dz * dz
-        md = jnp.minimum(mind_ref[:], d)
-        mind_ref[:] = md
-        best = jnp.max(md)
-        # first-index tie-break, exactly as the batched kernel / XLA twin
-        nxt = jnp.min(jnp.where(md == best, fidx_ref[:], sentinel))
-        sel_ref[0, 0] = nxt
-        o_ref[:] = jnp.where(out_flat == j, nxt, o_ref[:])
-        return 0
-
-    if npoint > 1:
-        lax.fori_loop(1, npoint, body, 0)
+    lax.fori_loop(1, npoint, step, jnp.int32(0))
 
 
 @functools.partial(jax.jit, static_argnums=(0, 2))
-def farthest_point_sample_pallas_rowwise(
+def farthest_point_sample_gpu(
     npoint: int, xyz: jnp.ndarray, interpret: bool = False
 ) -> jnp.ndarray:
-    """Row-wise Pallas FPS: (B, N, 3) -> (B, npoint) int32; seed index 0.
+    """Pallas-Triton FPS: (B, N, 3) -> (B, npoint) int32, seed index 0.
 
-    Identical semantics to :func:`farthest_point_sample_pallas` (same f32
-    distance arithmetic, exact max/min reductions, lowest-index ties) in a
-    per-batch-row layout that stays fully vectorized at small B — the
-    serving-latency case (reference equivalent: single-scene inference,
-    tf_sampling_g.cu:105-170 with one block per batch row).
+    Same semantics as the XLA twin and the numpy oracle, bit for bit.
+    ``interpret=True`` runs the kernel on the CPU (tests).
     """
-    xyz = xyz.astype(jnp.float32)
+    xyz = lax.stop_gradient(xyz.astype(jnp.float32))
     B, N, _ = xyz.shape
-
-    S = -(-N // _LANES)
-    S = -(-S // _SUBLANES) * _SUBLANES  # sublane-fold, padded to full tiles
-    Np = S * _LANES
-    So = -(-npoint // _LANES)
-    npad = So * _LANES
-
-    planes = jnp.transpose(xyz, (2, 0, 1))  # (3, B, N)
-    planes = jnp.pad(planes, ((0, 0), (0, 0), (0, Np - N)))
-    planes = planes.reshape(3, B, S, _LANES)
-    x, y, z = planes[0], planes[1], planes[2]
-
-    bspec = pl.BlockSpec((1, S, _LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM)
-    out = pl.pallas_call(
-        functools.partial(_fps_rowwise_kernel, npoint, N),
+    chunk = fps_chunk(N)
+    nchunks = -(-N // chunk)
+    Np = nchunks * chunk
+    planes = jnp.pad(jnp.transpose(xyz, (2, 0, 1)), ((0, 0), (0, 0), (0, Np - N)))
+    row = pl.BlockSpec((None, Np), lambda b: (b, 0))
+    idx, _ = pl.pallas_call(
+        functools.partial(_fps_kernel, npoint, N, chunk, nchunks, interpret),
         grid=(B,),
-        in_specs=[bspec, bspec, bspec],
-        out_specs=pl.BlockSpec(
-            (1, So, _LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM
+        in_specs=[row, row, row],
+        out_specs=(pl.BlockSpec((None, npoint), lambda b: (b, 0)), row),
+        out_shape=(
+            jax.ShapeDtypeStruct((B, npoint), jnp.int32),
+            jax.ShapeDtypeStruct((B, Np), jnp.float32),
         ),
-        out_shape=jax.ShapeDtypeStruct((B, So, _LANES), jnp.int32),
-        scratch_shapes=[
-            pltpu.VMEM((S, _LANES), jnp.float32),
-            pltpu.VMEM((S, _LANES), jnp.int32),
-            pltpu.SMEM((1, 1), jnp.int32),
-        ],
-        interpret=interpret,
-    )(x, y, z)
-    return lax.stop_gradient(out.reshape(B, npad)[:, :npoint])
-
-
-@functools.partial(jax.jit, static_argnums=(0, 2))
-def farthest_point_sample_pallas(
-    npoint: int, xyz: jnp.ndarray, interpret: bool = False
-) -> jnp.ndarray:
-    """Pallas FPS: (B, N, 3) -> (B, npoint) int32; seed index 0.
-
-    Batches ride the 8 sublanes. (A sublane-folded small-batch variant was
-    measured a dead end — the loop is latency-bound, not width-bound: B=1
-    5.8 vs 6.0 ms — and its fold=2 compiled lowering disagreed with
-    interpret mode, so it was removed; see ROADMAP "measured dead ends".)
-    """
-    xyz = xyz.astype(jnp.float32)
-    B, N, _ = xyz.shape
-
-    Bp = -(-B // _SUBLANES) * _SUBLANES
-    Np = -(-N // _LANES) * _LANES
-
-    planes = jnp.transpose(xyz, (2, 0, 1))  # (3, B, N)
-    planes = jnp.pad(planes, ((0, 0), (0, Bp - B), (0, Np - N)))
-    x, y, z = planes[0], planes[1], planes[2]
-
-    grid = (Bp // _SUBLANES,)
-    bspec = pl.BlockSpec((_SUBLANES, Np), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    out = pl.pallas_call(
-        functools.partial(_fps_kernel, npoint, N),
-        grid=grid,
-        in_specs=[bspec, bspec, bspec],
-        out_specs=pl.BlockSpec(
-            (_SUBLANES, npoint), lambda i: (i, 0), memory_space=pltpu.VMEM
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=max(1, min(16, chunk // 256)), num_stages=1
         ),
-        out_shape=jax.ShapeDtypeStruct((Bp, npoint), jnp.int32),
-        scratch_shapes=[pltpu.VMEM((_SUBLANES, Np), jnp.float32)],
         interpret=interpret,
-    )(x, y, z)
-    return lax.stop_gradient(out[:B])
+        name="fps",
+    )(planes[0], planes[1], planes[2])
+    return idx

@@ -1,6 +1,6 @@
 """Farthest-point sampling, point gather, and probability sampling.
 
-TPU-native rebuild of the reference CUDA package ``tf_ops/sampling``
+Rebuild of the reference CUDA package ``tf_ops/sampling``
 (`tf_sampling.py`, `tf_sampling_g.cu`). Semantics matched exactly:
 
 - ``farthest_point_sample``: iterative FPS seeded at index 0, maintaining a
@@ -8,9 +8,8 @@ TPU-native rebuild of the reference CUDA package ``tf_ops/sampling``
   argmax each step (tf_sampling_g.cu:105-170). No gradient
   (tf_sampling.py:22) — outputs are integer indices.
 - ``gather_point``: index gather with scatter-add gradient
-  (tf_sampling_g.cu:172-192); here JAX's take_along_axis VJP provides the
-  scatter-add automatically, and deterministically (the CUDA atomicAdd
-  accumulation order was non-deterministic; see SURVEY §5).
+  (tf_sampling_g.cu:172-192); here the gather's VJP provides the
+  scatter-add automatically.
 - ``prob_sample``: inverse-CDF sampling (cumsum + binary search,
   tf_sampling_g.cu:7-104). Unused by the model; kept for API completeness.
 """
@@ -27,11 +26,11 @@ from jax import lax
 def farthest_point_sample(npoint: int, xyz: jnp.ndarray) -> jnp.ndarray:
     """Iterative farthest point sampling (backend-dispatched).
 
-    On TPU backends this routes to the Pallas kernel
-    (:mod:`votenet_tpu.ops.pallas.fps`) which runs the whole selection loop
-    in VMEM; elsewhere — or when Pallas is disabled via
-    :func:`votenet_tpu.ops.dispatch.set_use_pallas` — it uses the XLA
-    fori_loop twin below. Identical semantics either way.
+    On a GPU this is the Pallas-Triton kernel
+    (:mod:`votenet_tpu.ops.pallas.fps`), which runs the whole selection loop
+    in one launch; elsewhere, or when the kernels are switched off via
+    :func:`votenet_tpu.ops.dispatch.set_use_pallas`, the XLA fori_loop twin
+    below. Identical semantics either way.
 
     Args:
       npoint: number of points to select (static).
@@ -42,34 +41,12 @@ def farthest_point_sample(npoint: int, xyz: jnp.ndarray) -> jnp.ndarray:
       (B, npoint) int32 indices into N. First index is always 0 (the
       reference seeds FPS at index 0, tf_sampling_g.cu:114-116).
     """
-    from votenet_tpu.ops.common import LARGE_N_THRESHOLD
-    from votenet_tpu.ops.dispatch import use_pallas
+    from votenet_tpu.ops.dispatch import use_gpu_kernels
 
-    # The Pallas kernels keep the (N-sized) coordinate planes + min-dist
-    # cache in VMEM, each with its own capacity (SURVEY §5 "point-count
-    # scaling"): the batched kernel holds 8 sublane rows per plane
-    # (128 B/point, cap LARGE_N_THRESHOLD); the row-wise kernel holds one
-    # row (36 B/point, cap ROWWISE_MAX_N), so it extends Pallas FPS to ~3x
-    # larger clouds at ANY batch — only beyond that does the XLA fori_loop
-    # twin (O(B*N) HBM, no VMEM limit, but ~latency-bound) take over.
-    if use_pallas():
-        from votenet_tpu.ops.pallas.fps import (
-            ROWWISE_MAX_B,
-            ROWWISE_MAX_N,
-            farthest_point_sample_pallas,
-            farthest_point_sample_pallas_rowwise,
-        )
+    if use_gpu_kernels():
+        from votenet_tpu.ops.pallas.fps import farthest_point_sample_gpu
 
-        B, N = xyz.shape[0], xyz.shape[1]
-        if N <= LARGE_N_THRESHOLD:
-            # Small batches underfill the batched kernel's sublanes (B of 8
-            # busy rows); the row-wise fold keeps the VPU dense — the
-            # serving-latency case. Identical semantics either way.
-            if B <= ROWWISE_MAX_B:
-                return farthest_point_sample_pallas_rowwise(npoint, xyz)
-            return farthest_point_sample_pallas(npoint, xyz)
-        if N <= ROWWISE_MAX_N:
-            return farthest_point_sample_pallas_rowwise(npoint, xyz)
+        return farthest_point_sample_gpu(npoint, xyz)
     return farthest_point_sample_xla(npoint, xyz)
 
 
@@ -104,10 +81,9 @@ def farthest_point_sample_xla(npoint: int, xyz: jnp.ndarray) -> jnp.ndarray:
 def gather_point(inp: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
     """Gather points by index: (B, N, C), (B, M) -> (B, M, C).
 
-    Flat row-gather from a (B*N, C) table (the fastest gather lowering on
-    TPU; see group_point). Differentiable w.r.t. ``inp`` (VJP is a
-    deterministic scatter-add, replacing the reference's atomicAdd kernel
-    tf_sampling_g.cu:183-192).
+    Flat row-gather from a (B*N, C) table (see group_point).
+    Differentiable w.r.t. ``inp``: the VJP is XLA's scatter-add, like the
+    reference's atomicAdd kernel (tf_sampling_g.cu:183-192).
     """
     B, N, C = inp.shape
     M = idx.shape[1]

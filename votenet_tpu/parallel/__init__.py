@@ -2,10 +2,11 @@
 
 The reference is strictly single-GPU (SimpleTrainer, run.py:136; SURVEY
 §2.3); its only parallelism is multi-process host data loading over ZMQ.
-The TPU-native equivalents here are first-class:
+The equivalents here are first-class:
 
 - a ``jax.sharding.Mesh`` over the batch axis; gradients/batch-norm
-  statistics all-reduce over ICI via collectives XLA inserts under GSPMD;
+  statistics all-reduce between devices via collectives XLA inserts under
+  GSPMD;
 - per-host input sharding helpers for multi-host pods;
 - point-axis (SP) sharding for the O(N) irregular ops — scale the point
   count over a mesh axis with bit-exact semantics

@@ -2,7 +2,7 @@
 
 The reference handles N=20480 points on one GPU; this model family's
 "long-context" axis is the point count (SURVEY §5 / §2.3 names within-scene
-point-dimension sharding as the TPU-native stretch goal). Beyond the
+point-dimension sharding as the stretch goal). Beyond the
 single-chip dense/streaming byte budgets (``ops.common``) a scene can
 instead be sharded over a mesh axis: every O(N) working set — the ball
 query's (B, M, N) hit mask, FPS's min-distance cache, three_nn's distance

@@ -7,17 +7,51 @@ checkpoint.
 
 from __future__ import annotations
 
-from typing import Any
+import dataclasses
+from typing import Any, Callable
 
 import jax
-from flax import struct
-from flax.training import train_state as flax_train_state
+import optax
 
 from votenet_tpu.config import Config
 
 
-class TrainState(flax_train_state.TrainState):
-    batch_stats: Any = struct.field(default=None)
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
+class TrainState:
+    """Step counter, model variables and optimizer state.
+
+    ``apply_fn`` and ``tx`` are static (not pytree leaves); everything else
+    is carried through jit, donation and checkpoints.
+    """
+
+    step: Any
+    params: Any
+    batch_stats: Any
+    opt_state: Any
+    apply_fn: Callable = dataclasses.field(metadata=dict(static=True))
+    tx: optax.GradientTransformation = dataclasses.field(metadata=dict(static=True))
+
+    @classmethod
+    def create(cls, *, apply_fn, params, batch_stats, tx) -> "TrainState":
+        return cls(
+            step=0, params=params, batch_stats=batch_stats,
+            opt_state=tx.init(params), apply_fn=apply_fn, tx=tx,
+        )
+
+    def replace(self, **updates) -> "TrainState":
+        return dataclasses.replace(self, **updates)
+
+    def apply_gradients(self, *, grads, **updates) -> "TrainState":
+        """One optimizer update; ``updates`` replace other fields (e.g. the
+        new ``batch_stats`` of the same step)."""
+        deltas, opt_state = self.tx.update(grads, self.opt_state, self.params)
+        return self.replace(
+            step=self.step + 1,
+            params=optax.apply_updates(self.params, deltas),
+            opt_state=opt_state,
+            **updates,
+        )
 
 
 def create_train_state(
